@@ -1,11 +1,11 @@
 """Drive the PyTorch/CUDA port's main path once on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA device must be present; print its name and power limit;
-  2. build the kernels from the checkout's sources (nvcc for sm_90a, gcc
-     for the host AES-GCM library);
+  2. build the kernels from the checkout's sources, all at once (one nvcc
+     for sm_90a per CUDA source, gcc for the host AES-GCM library);
   3. the L2 top-k kernel against its plain torch twin at d=128, K=100,
      262,144 base rows x 256 queries;
   4. the Hamming scan on CUDA against the same scan on the CPU: 100k rows
@@ -13,9 +13,24 @@ Phases (any failure raises and exits non-zero):
   5. the encrypted scan-query slice at bench.py's operating point (1M x 128
      LSH-hard corpus, m=64 → 3,072-bit codes, L=2,000, margin 40, f16
      payloads, host encode, batch 64) through ForwardSecureANNSystem, with
-     ground truth from the kernel; recall@10 >= 0.98 and ratio@100 <= 1.01.
-The last two lines of standard output are the kernels' JSON record and the
-device JSON line.
+     ground truth from the kernel; recall@10 >= 0.98 and ratio@100 <= 1.01;
+  6. the candidate-Hamming kernel against its plain torch twin, bit for
+     bit: 1M rows x 96 words, 64 queries x 49,152 candidates with pads, and
+     the same at 192 words;
+  7. the probe route on CUDA against the same route on the CPU at 100k rows
+     (G = 24, W = 4, block 128, 1% tombstones, Q in {64, 7, 1}, narrow and
+     wide keys): partition build, route and route_rerank equal on every
+     field; device encode flips under 1e-4 of the bits of host encode;
+  8. the probe slice at bench.py's BENCH_ROUTING=probe point (the same
+     corpus, 16 probes, block 128, 56,000 routed, re-rank to 2,000, f16
+     payloads, device encode, device refine, batch 64) through
+     ForwardSecureANNSystem: table, codes and refine on the card, both
+     kernels launched, the first batch's CUDA route equal to the CPU route
+     on copies of the same state; recall@10 >= 0.65 and ratio@100 <= 1.03.
+     ``--profile`` adds a torch.profiler pass over the served queries.
+Each served path (phases 5 and 8) runs with the kernels' launch counts set
+to 0 just before it and read just after.  The last two lines of standard
+output are the kernels' JSON record and the device JSON line.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import torch
 TOL_RTOL, TOL_ATOL = 2e-4, 1e-4     # tests/test_pallas_topk.py
 N_SLICE = 1_000_000
 Q_SLICE = 1024
+INT32_MAX = 2 ** 31 - 1
 
 
 def log(msg: str) -> None:
@@ -166,17 +182,27 @@ def phase_scan(dev) -> None:
         f"Q=64: {ms:.3f} ms")
 
 
-def phase_slice(dev, topk_rec: dict) -> None:
+def reset_launches() -> None:
+    from fspann_tpu_torch.ops.code_hamming import code_hamming
+    from fspann_tpu_torch.ops.l2_topk import l2_topk
+
+    l2_topk.launches = code_hamming.launches = 0
+
+
+def read_launches() -> dict:
+    from fspann_tpu_torch.ops.code_hamming import code_hamming
+    from fspann_tpu_torch.ops.l2_topk import l2_topk
+
+    return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches}
+
+
+def phase_slice(dev, base, queries) -> dict:
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.config import SystemConfig
-    from fspann_tpu_torch.io import groundtruth, synthetic
+    from fspann_tpu_torch.io import groundtruth
     from fspann_tpu_torch.ops.l2_topk import l2_topk
     from fspann_tpu_torch.ops.refine import bruteforce_topk
 
-    t0 = time.perf_counter()
-    base, queries = synthetic.lsh_hard_corpus(N_SLICE, 128, Q_SLICE, seed=42)
-    log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
-        f"{time.perf_counter() - t0:.1f} s")
     cfg = SystemConfig()
     cfg = dataclasses.replace(
         cfg, paper=dataclasses.replace(cfg.paper, tables=8, m=64),
@@ -190,7 +216,7 @@ def phase_slice(dev, topk_rec: dict) -> None:
         sys_ = ForwardSecureANNSystem(cfg, os.path.join(work, "db"), 128,
                                       query_batch=64)
         torch.cuda.reset_peak_memory_stats()
-        l2_topk.launches = 0               # counts from here are the path's
+        reset_launches()                   # counts from here are the path's
         t0 = time.perf_counter()
         sys_.index_stream(base, batch_size=100_000)
         t_insert = time.perf_counter() - t0
@@ -203,9 +229,11 @@ def phase_slice(dev, topk_rec: dict) -> None:
             f"{fingerprint(bank.alpha, bank.r, bank.omega)}, popcounts "
             f"{fingerprint(st.popc.cpu().numpy())}")
         require(st.bits.device.type == torch.device(dev).type, st.bits.device)
+        fs = {k: round(v, 2) for k, v in sys_.index.finalize_sec.items()}
         log(f"  build {t_insert + t_final:.1f} s (insert {t_insert:.1f} + "
-            f"finalize {t_final:.1f}); scan state {tuple(st.bits.shape)} "
-            f"int8 on {st.bits.device}, {st.bits.numel() / 1e9:.2f} GB")
+            f"finalize {t_final:.1f}: {fs}); scan state "
+            f"{tuple(st.bits.shape)} int8 on {st.bits.device}, "
+            f"{st.bits.numel() / 1e9:.2f} GB")
         t0 = time.perf_counter()
         gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
         torch.cuda.synchronize()
@@ -215,13 +243,14 @@ def phase_slice(dev, topk_rec: dict) -> None:
         t0 = time.perf_counter()
         agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
         wall = time.perf_counter() - t0
-        launches = l2_topk.launches
+        counts = read_launches()
+        launches = counts["l2_topk"]
         require(launches > 0, "ground truth did not run the l2_topk kernel")
-        topk_rec["launches"] = launches
         rows = [r for r in sys_.profiler.rows if r.k == 10]
         nq = len(rows)
         peak = torch.cuda.max_memory_allocated()
-        log(f"  GT (kernel) {t_gt:.2f} s; l2_topk launches {launches}")
+        log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
+            f"{counts}")
         log(f"  {agg.paper_line()}")
         log(f"  q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  "
             f"p50 {agg.p50_art_ms:.3f}  p95 {agg.p95_art_ms:.3f}  "
@@ -254,6 +283,264 @@ def phase_slice(dev, topk_rec: dict) -> None:
             f"{p2:.3f})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+def phase_code_hamming(dev) -> dict:
+    """The candidate-Hamming kernel against its plain twin, bit for bit, at
+    the probe slice's shape (Q=64, R = 24 groups x 16 probes x 128 rows)
+    and at the 6,144-bit width."""
+    from fspann_tpu_torch.ops import code_hamming as ch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    n, q, r = N_SLICE, 64, 49_152
+    rec = None
+
+    def words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    for c in (96, 192):
+        pc, qc = words((n, c)), words((q, c))
+        # id-ascending candidates as the route hands them over, with every
+        # pad kind mixed in: INT32_MAX (dedup), -1 and n (out of range)
+        ids = torch.randint(0, n, (q, r), generator=gen, device=dev,
+                            dtype=torch.int64).sort(dim=1).values \
+            .to(torch.int32)
+        pad = torch.rand((q, r), generator=gen, device=dev) < 0.1
+        ids = torch.where(pad, torch.full_like(ids, INT32_MAX), ids)
+        ids[:, ::97] = -1
+        ids[:, 1::97] = n
+        got = ch.code_hamming(pc, qc, ids)
+        want = ch.code_hamming_plain(pc, qc, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"code_hamming C={c} != plain")
+        err = float((got.long() - want.long()).abs().max())
+        p1 = time_ms(lambda: ch.code_hamming_plain(pc, qc, ids))
+        k1 = time_ms(lambda: ch.code_hamming(pc, qc, ids), reps=10)
+        k2 = time_ms(lambda: ch.code_hamming(pc, qc, ids), reps=10)
+        p2 = time_ms(lambda: ch.code_hamming_plain(pc, qc, ids))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        gbs = q * r * c * 4 / (ms * 1e-3) / 1e9
+        log(f"phase 6 code_hamming {n} rows x {c} words, {q} q x {r} "
+            f"candidates: equal to plain bit for bit; kernel {ms:.3f} ms "
+            f"(turns {k1:.3f}, {k2:.3f}; {gbs:.0f} GB/s of gathered rows), "
+            f"plain {plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f})")
+        if rec is None:
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del pc, qc, ids, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _require_tables_equal(a, b, what) -> None:
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        require((x is None) == (y is None), (what, f))
+        if x is not None:
+            require(x.dtype == y.dtype and np.array_equal(x, y), (what, f))
+
+
+def phase_probe_equal(dev, base, queries) -> None:
+    """Partition build, probe route and device encode on CUDA against the
+    CPU, at 100k rows of the slice's corpus and code geometry."""
+    from fspann_tpu_torch.ops import coding, partition, routing
+
+    n, probes, block = min(100_000, len(base)), 16, 128
+    x = base[:n]
+    bank = coding.build_bank_from_sample(x[:1000], 64, 2, 8, 3, 13)
+    codes, keys = coding.encode_numpy(x, bank)
+    dcodes, dkeys = coding.encode(torch.from_numpy(x).to(dev),
+                                  coding.bank_to(bank, dev))
+    flips = int(np.unpackbits(
+        (coding.words_to_numpy(dcodes) ^ codes).view(np.uint8)).sum())
+    total = n * bank.g * bank.code_bits
+    require(flips < 1e-4 * total, f"device encode flipped {flips} bits")
+    require(np.array_equal(dkeys.cpu().numpy(), coding.keys_from_codes(
+        dcodes).cpu().numpy()), "device keys")
+    rng = np.random.default_rng(17)
+    tomb = torch.from_numpy(rng.random(n) < 0.01)
+    qc, qk = coding.encode_numpy(queries[:64], bank)
+    pc_cpu = coding.words_to_torch(codes)
+    pc_dev = pc_cpu.to(dev)
+    keys_gn = np.ascontiguousarray(keys.T)
+    codes_gn = np.ascontiguousarray(codes.transpose(1, 0, 2))
+    fields = ("ids", "scores", "n_unique", "n_raw")
+    ms = {}
+    for wide in (False, True):
+        host = partition.build_partitions_numpy(keys_gn, codes_gn, block,
+                                                wide=wide)
+        dtab = partition.build_partitions(
+            torch.from_numpy(keys_gn).to(dev),
+            coding.words_to_torch(codes_gn, dev), block, wide=wide)
+        _require_tables_equal(partition.table_to_numpy(dtab), host,
+                              ("build", wide))
+        ctab = partition.table_to(host, "cpu")
+        for q in (64, 7, 1):
+            a = (coding.words_to_torch(qc[:q]), torch.from_numpy(qk[:q]),
+                 tomb)
+            ad = tuple(t.to(dev) for t in a)
+            for fn, extra, extra_dev in (
+                    (routing.route, (probes, 56_000), (probes, 56_000)),
+                    (routing.route_rerank, (pc_cpu, probes, 2000),
+                     (pc_dev, probes, 2000))):
+                want = fn(ctab, *a, *extra)
+                got = fn(dtab, *ad, *extra_dev)
+                for f in fields:
+                    require(torch.equal(getattr(got, f).cpu(),
+                                        getattr(want, f)),
+                            (fn.__name__, wide, q, f))
+        a = tuple(t.to(dev) for t in (coding.words_to_torch(qc),
+                                      torch.from_numpy(qk), tomb))
+        ms[wide] = time_ms(lambda: routing.route_rerank(
+            dtab, *a, pc_dev, probes, 2000))
+    log(f"phase 7 probe route {n} rows, G=24, W=4, block 128, 1% "
+        f"tombstones, Q in (64, 7, 1): CUDA == CPU on every field (build, "
+        f"route, route_rerank; narrow and wide keys); device encode flipped "
+        f"{flips} of {total} bits ({flips / total:.2e}); CUDA route_rerank "
+        f"at Q=64: {ms[False]:.3f} ms narrow, {ms[True]:.3f} ms wide")
+    torch.cuda.empty_cache()
+
+
+def _profile_pass(sys_, queries, gtm, base) -> None:
+    """One served pass under torch.profiler: device busy share and the
+    device kernels and copies that take the time.  Only device-side events
+    are summed (a CPU op's row repeats its kernels' device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sys_.run_queries(queries, gtm, base, ks=(10,))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA),
+                key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in ev) / 1e3
+    log(f"  profiled pass: {busy:.2f} ms of device time in a "
+        f"{wall * 1e3:.1f} ms pass (device busy {busy / (wall * 1e3):.1%}, "
+        f"{sum(e.count for e in ev)} device events)")
+    for e in ev[:10]:
+        log(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6} {e.key[:90]}")
+
+
+def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.config import SystemConfig
+    from fspann_tpu_torch.io import groundtruth
+    from fspann_tpu_torch.ops import coding, partition, routing
+    from fspann_tpu_torch.ops import refine as refine_mod
+
+    cfg = SystemConfig()
+    cfg = dataclasses.replace(
+        cfg, paper=dataclasses.replace(cfg.paper, tables=8, m=64),
+        runtime=dataclasses.replace(
+            cfg.runtime, storage_dtype="f16", encode_backend="default",
+            refine_backend="device", probe_override=16, block_size=128,
+            refinement_limit=56_000, max_global_candidates=56_000,
+            rerank_limit=2000, adaptive_decrypt_margin=40,
+            routing_mode="probe")).validate()
+    rt = cfg.runtime
+    refine_devices = set()
+    plain_refine = refine_mod.refine
+
+    def refine_spy(*args, **kw):
+        refine_devices.add(args[1].device.type)
+        return plain_refine(*args, **kw)
+
+    work = tempfile.mkdtemp(prefix="fspann_smoke_probe_")
+    try:
+        sys_ = ForwardSecureANNSystem(cfg, os.path.join(work, "db"), 128,
+                                      query_batch=64)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        refine_mod.refine = refine_spy
+        reset_launches()                   # counts from here are the path's
+        t0 = time.perf_counter()
+        sys_.index_stream(base, batch_size=100_000)
+        t_insert = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sys_.finalize_for_search()
+        t_final = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
+        torch.cuda.synchronize()
+        t_gt = time.perf_counter() - t0
+        sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
+        sys_.profiler.clear_rows()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        refine_mod.refine = plain_refine
+        peak_serve = torch.cuda.max_memory_allocated()
+        idx = sys_.index
+        bank = idx.bank
+        fs = {k: round(v, 2) for k, v in idx.finalize_sec.items()}
+        log(f"phase 8 probe slice {N_SLICE}x128, {Q_SLICE} q: fingerprints "
+            f"bank {fingerprint(bank.alpha, bank.r, bank.omega)}, table ids "
+            f"{fingerprint(idx.table.ids.cpu().numpy())}")
+        log(f"  build {t_insert + t_final:.1f} s (insert with device encode "
+            f"{t_insert:.1f} + finalize {t_final:.1f}: {fs}); table ids "
+            f"{tuple(idx.table.ids.shape)} on {idx.table.ids.device}, point "
+            f"codes {tuple(idx.point_codes.shape)} on "
+            f"{idx.point_codes.device}")
+        require(idx.table.ids.device.type == "cuda", "table not on cuda")
+        require(idx.point_codes.device.type == "cuda", "codes not on cuda")
+        require(refine_devices == {"cuda"}, f"refine ran on {refine_devices}")
+        require(counts["code_hamming"] > 0, "route did not run code_hamming")
+        require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
+        rows = [r for r in sys_.profiler.rows if r.k == 10]
+        nq = len(rows)
+        log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
+            f"{counts}; refine ran on {sorted(refine_devices)}")
+        log(f"  {agg.paper_line()}")
+        log(f"  q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  "
+            f"p50 {agg.p50_art_ms:.3f}  p95 {agg.p95_art_ms:.3f}  "
+            f"route {sum(r.route_ms for r in rows) / nq:.3f} ms  decrypt "
+            f"{sum(r.decrypt_ms for r in rows) / nq:.3f} ms  refine "
+            f"{sum(r.refine_ms for r in rows) / nq:.3f} ms per query")
+        r10, r100 = agg.recall_at_k[10], agg.recall_at_k[100]
+        ratio = agg.ratio_at_k[100]
+        log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
+            f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  "
+            f"peak device memory {peak / 2**30:.2f} GiB (build, ground "
+            f"truth, warm-up), {peak_serve / 2**30:.2f} GiB (serving)")
+
+        # the first batch's route on the card against the plain torch route
+        # on CPU copies of the same table, codes and tombstones
+        qc, qk = idx.encode_queries(queries[:64])
+        got = idx.route_batch(qc, qk)
+        want = routing.route_rerank(
+            partition.table_to(idx.table, "cpu"), coding.words_to_torch(qc),
+            torch.from_numpy(qk), idx._tombstones().cpu(),
+            idx.point_codes.cpu(), rt.effective_probes(), rt.rerank_limit)
+        for f in ("ids", "scores", "n_unique", "n_raw"):
+            require(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+                    ("1M route", f))
+        log(f"  first batch at {N_SLICE} rows: CUDA route == CPU route on "
+            f"every field ({want.n_raw.float().mean():.0f} live probed ids "
+            f"per query before dedup)")
+        require(r10 >= 0.65, f"recall@10 {r10} < 0.65")
+        require(ratio <= 1.03, f"ratio@100 {ratio} > 1.03")
+        if profile:
+            _profile_pass(sys_, queries, gtm, base)
+        sys_.shutdown()
+    finally:
+        refine_mod.refine = plain_refine
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
 
 
 def main() -> int:
@@ -266,26 +553,43 @@ def main() -> int:
         f"host cpu: {cpu_model()}, {os.cpu_count()} cores")
 
     from fspann_tpu_torch import _build
+    from fspann_tpu_torch.io import synthetic
+
     t0 = time.perf_counter()
-    _build.cuda_library("l2_topk")
-    _build.aes_gcm_library_path()
-    log(f"phase 2 build {time.perf_counter() - t0:.1f} s "
+    _build.build_all()
+    log(f"phase 2 build {time.perf_counter() - t0:.1f} s, in parallel "
         f"({ {k: round(v, 1) for k, v in _build.build_seconds.items()} })")
-    for line in _build.build_logs.get("libl2_topk.so", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    for lib in sorted(_build.build_logs):
+        for line in _build.build_logs[lib].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {lib}: {line.strip()}")
 
     rec = phase_topk(dev)
     phase_scan(dev)
-    phase_slice(dev, rec)
+    t0 = time.perf_counter()
+    base, queries = synthetic.lsh_hard_corpus(N_SLICE, 128, Q_SLICE, seed=42)
+    log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
+        f"{time.perf_counter() - t0:.1f} s")
+    scan_counts = phase_slice(dev, base, queries)
+    ch_rec = phase_code_hamming(dev)
+    phase_probe_equal(dev, base, queries)
+    probe_counts = phase_probe_slice(dev, base, queries,
+                                     profile="--profile" in sys.argv[1:])
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "l2_topk", "route": "cuda",
         "source": "fspann_tpu_torch/csrc/l2_topk.cu",
         "replaces": "fspann_tpu/ops/pallas_topk.py:106",
-        "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}]}), flush=True)
+        "launches": scan_counts["l2_topk"] + probe_counts["l2_topk"],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}, {
+        "name": "code_hamming", "route": "cuda",
+        "source": "fspann_tpu_torch/csrc/code_hamming.cu",
+        "replaces": "fspann_tpu/ops/routing.py:281",
+        "launches": probe_counts["code_hamming"],
+        "max_abs_err": ch_rec["max_abs_err"],
+        "ms": ch_rec["ms"], "plain_ms": ch_rec["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,9 +11,10 @@ Two kinds of library, both plain C ABIs loaded with ctypes:
   JAX package's directory is never written).
 
 ``build/`` is git-ignored; every fresh checkout builds here on first use.
-A file lock serialises concurrent builds (parallel test workers), and
-each library is written under a temporary name and renamed into place, so
-a reader never loads a half-written file.  A failed build raises with the
+A lock file per library serialises concurrent builds of that library
+(parallel test workers) while different libraries build side by side
+(:func:`build_all`), and each library is written under a temporary name and
+renamed into place, so a reader never loads a half-written file.  A failed build raises with the
 compiler's output — nothing falls back to a prebuilt or plain version.
 """
 
@@ -25,6 +26,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -58,7 +60,7 @@ def _build(out_name: str, sources: list[str], cmd) -> str:
     library is already there.  ``cmd(out_path)`` gives the compiler argv."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, out_name)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    with open(os.path.join(BUILD_DIR, f".{out_name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         newest = max(os.path.getmtime(s) for s in sources)
         if os.path.exists(out) and os.path.getmtime(out) >= newest:
@@ -91,3 +93,15 @@ def cuda_library(name: str) -> ctypes.CDLL:
                       lambda out: [_nvcc(), *NVCC_FLAGS, "-o", out, src])
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
+
+
+def build_all() -> None:
+    """Build every library at once: one ``nvcc`` per ``csrc/*.cu`` and gcc
+    for the AES library, all started together (a library that is up to
+    date is only loaded)."""
+    names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        jobs = [ex.submit(cuda_library, n) for n in names]
+        jobs.append(ex.submit(aes_gcm_library_path))
+        for job in jobs:
+            job.result()

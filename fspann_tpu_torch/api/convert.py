@@ -13,6 +13,10 @@ and install them::
 
 With the same bank, ``encode_numpy`` gives bit-identical codes and keys in
 both packages.
+
+A JAX partition table crosses with :func:`table_from_jax`; a JAX
+``table.npz`` needs no conversion (``PartitionedIndex.load_table`` reads the
+same keys and dtypes).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.coding import GBank
+from ..ops.partition import PartitionTable, table_to
 
 
 def bank_from_jax(alpha: np.ndarray, r: np.ndarray, omega: np.ndarray,
@@ -38,3 +43,12 @@ def bank_from_jax(alpha: np.ndarray, r: np.ndarray, omega: np.ndarray,
         raise ValueError("bank widths must be positive")
     return GBank(alpha, r, omega, int(m), int(lam), int(tables),
                  int(divisions), int(seed))
+
+
+def table_from_jax(table, device="cpu") -> PartitionTable:
+    """The port's table (tensors on ``device``) holding a JAX
+    ``PartitionTable``'s arrays; its uint32 rep codes become int32 bit
+    patterns."""
+    fields = [None if f is None else np.array(f) for f in table]
+    fields[2] = fields[2].astype(np.uint32)
+    return table_to(PartitionTable(*fields), device)

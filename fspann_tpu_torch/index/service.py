@@ -1,18 +1,26 @@
-"""Scan-mode routing index: staging → device scan state → frozen query state.
+"""Partitioned routing index: staging → device build → frozen query state.
 
 Reference counterpart: ``index/paper/PartitionedIndexService.java`` —
 buffers an initialization sample (:50-51, :280-290), stages per-point codes
-(:314-347), ``finalizeForSearch`` freezes (:789-845), tombstone filtering
-(:726-753).
+(:314-347), ``finalizeForSearch`` builds greedy partitions and freezes
+(:789-845), query-side candidate lookup (:592-715), tombstone filtering
+(:726-753), probe overrides (:868-888).
 
-This port serves stage A with the Hamming scan (``routing_mode="scan"``):
-ingestion encodes on the host (``encode_backend="cpu"``) and stages packed
-codes; ``finalize`` uploads them once and unpacks the int8 bit matrix on
-the device.  No partition table is built — the scan never reads one.  Not
-ported yet (each raises ``NotImplementedError`` where it would be chosen):
-probe routing and its partition table, device encode, the packed scan
-state, the native CPU scan, live insert (``append_rows``) and the table
-checkpoint.
+Port of ``fspann_tpu/index/service.py``.  Ingestion encodes each batch as it
+arrives (on the host with ``encode_backend="cpu"``, else on the index
+device) and stages packed codes + keys in host arrays; ``finalize`` builds
+the partition table (numpy on the host then one upload, or batched sorts on
+the device) and, by mode, the device state stage A reads:
+
+* ``routing_mode="probe"``: the table, plus every point's packed codes
+  when ``rerank_limit > 0`` (the full-code re-rank, ``ops/code_hamming``);
+* ``routing_mode="scan"``: the unpacked int8 bit matrix of the Hamming
+  scan (the table is built too, for the checkpoint).
+
+``save_table`` / ``load_table`` read and write the JAX package's
+``table.npz`` format.  Not ported yet (each raises ``NotImplementedError``
+where it would be chosen): the packed scan state, the native CPU scan and
+live insert (``append_rows``).
 
 This module holds NO cipher state — routing–ciphertext orthogonality is a
 structural property here, not a convention: the class cannot see keys or
@@ -29,7 +37,8 @@ import torch
 
 from .. import default_device
 from ..config import SystemConfig
-from ..ops import coding, hamming_scan, routing
+from ..ops import coding, hamming_scan, partition, routing
+from ..ops.partition import PartitionTable
 
 
 class IndexNotFinalized(RuntimeError):
@@ -54,14 +63,7 @@ def _consume_concat(chunks: list[np.ndarray]) -> np.ndarray:
 def _check_ported(cfg: SystemConfig) -> None:
     rt = cfg.runtime
     if rt.routing_mode != "scan":
-        raise NotImplementedError("the torch port serves routing_mode='scan'"
-                                  " only; probe routing is not ported yet")
-    if rt.encode_backend != "cpu":
-        raise NotImplementedError("the torch port encodes on the host only "
-                                  "(encode_backend='cpu')")
-    if rt.refine_backend != "host":
-        raise NotImplementedError("the torch port refines on the host only "
-                                  "(refine_backend='host')")
+        return
     if rt.scan_native == "on":
         # "auto"/"off" serve from the torch scan on every device
         raise NotImplementedError("scan_native='on': the native CPU scan is "
@@ -85,20 +87,33 @@ class PartitionedIndex:
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.bank: coding.GBank | None = None
+        self._bank_dev: coding.GBank | None = None   # lazy device copy
         self.frozen = False
-        # unpacked int8 bit matrix + popcounts on self.device
+        self.table: PartitionTable | None = None     # tensors on self.device
+        # host (numpy) twins of the frozen table and of the probe-mode
+        # re-rank codes: save_table writes from these without a device read
+        self._table_host: PartitionTable | None = None
+        self._codes_host: np.ndarray | None = None
+        # int32 [N, G, W] code bit patterns on self.device, only when
+        # runtime.rerank_limit > 0 in probe mode (G*W words per point)
+        self.point_codes: torch.Tensor | None = None
+        # unpacked int8 bit matrix + popcounts (routing_mode == "scan") and
+        # the packed codes it came from (persisted by save_table)
         self._scan_state: hamming_scan.ScanState | None = None
-        # live insert is not ported: the frozen state always covers all rows
+        self._scan_codes: np.ndarray | None = None
+        # live insert is not ported: the frozen table always covers all rows
         self._table_stale = False
         self._scan_budget_cache: int | None = None
         # staging
         self._pending_vecs: list[np.ndarray] = []   # pre-bank raw vectors
         self._pending_ids: list[np.ndarray] = []
         self._codes: list[np.ndarray] = []          # [b, G, W] uint32
+        self._keys: list[np.ndarray] = []           # [b, G] int64
         self._ids: list[np.ndarray] = []
         self._staged = 0
         self._deleted: set[int] = set()
         self._tombstones_np = None
+        self._tombstones_dev = None
         self._tombstones_dirty = True
         # device scan-state row count (== _n_rows unless capacity-padded;
         # runtime.scan_capacity_rows) + its padded device tombstones
@@ -126,6 +141,7 @@ class PartitionedIndex:
         if self._staged:
             raise RuntimeError("bank must be installed before staging rows")
         self.bank = bank
+        self._bank_dev = None
         if self.bank_path:
             self._save_bank(self.bank_path)
 
@@ -160,12 +176,20 @@ class PartitionedIndex:
             z["alpha"].astype(np.float32), z["r"].astype(np.float32),
             z["omega"].astype(np.float32), pp.m, pp.lam, pp.tables,
             pp.divisions, int(z["seed"]))
+        self._bank_dev = None
+
+    def _dev_bank(self) -> coding.GBank:
+        """The bank on ``self.device``, moved once (``alpha`` is [G, m, d])
+        for the device encode path."""
+        if self._bank_dev is None:
+            self._bank_dev = coding.bank_to(self.bank, self.device)
+        return self._bank_dev
 
     # -- ingestion ----------------------------------------------------------------
 
     def stage(self, ids: np.ndarray, vecs: np.ndarray) -> None:
         """Stage a batch for the next finalize.  Coding runs immediately once
-        the bank exists (one host batch per insert batch — replacing the
+        the bank exists (one batch per insert batch — replacing the
         reference's per-vector tables×divisions×m dot products,
         PartitionedIndexService.java:331-346)."""
         if self.frozen:
@@ -195,17 +219,33 @@ class PartitionedIndex:
             return
         self._encode_staged(ids, vecs)
 
+    def _encode(self, vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(uint32 codes [n, G, W], int64 keys [n, G]) on the host, encoded
+        by the configured backend: numpy BLAS, or the index device."""
+        if self.cfg.runtime.encode_backend == "cpu":
+            return coding.encode_numpy(vecs, self.bank)
+        codes, keys = coding.encode(
+            torch.from_numpy(np.ascontiguousarray(vecs, np.float32))
+            .to(self.device), self._dev_bank())
+        return coding.words_to_numpy(codes), keys.cpu().numpy()
+
     def _encode_staged(self, ids: np.ndarray, vecs: np.ndarray) -> None:
-        codes, _keys = coding.encode_numpy(vecs, self.bank)
+        codes, keys = self._encode(vecs)
         self._codes.append(codes)
+        self._keys.append(keys)
         self._ids.append(ids)
         self._staged += len(ids)
 
     # -- finalize -------------------------------------------------------------------
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def finalize(self) -> None:
-        """Flush pending staging, build the device scan state, freeze
-        (reference finalizeForSearch:789-845).  Idempotent once frozen."""
+        """Flush pending staging, build the partition table and the mode's
+        device state, freeze (reference finalizeForSearch:789-845).
+        Idempotent once frozen."""
         if self.frozen:
             return
         _check_ported(self.cfg)
@@ -221,11 +261,12 @@ class PartitionedIndex:
 
         ids = _consume_concat(self._ids)
         codes = _consume_concat(self._codes)      # [N, G, W]
+        keys = _consume_concat(self._keys)        # [N, G]
         if len(ids) > 1 and not np.all(ids[:-1] <= ids[1:]):
             # streaming ingestion stages ordinals already in order — skip
             # the gather (a full extra copy of [N, G, W]) when sorted
             order = np.argsort(ids, kind="stable")
-            ids, codes = ids[order], codes[order]
+            ids, codes, keys = ids[order], codes[order], keys[order]
         if len(np.unique(ids)) != len(ids):
             raise ValueError("duplicate ids staged")
 
@@ -234,24 +275,59 @@ class PartitionedIndex:
         self._dense = bool(len(ids) and ids[0] == 0
                            and ids[-1] == len(ids) - 1)
         # per-phase wall clocks, synchronised on the device work
+        rt = self.cfg.runtime
         self.finalize_sec: dict[str, float] = {}
+        if rt.rerank_limit > 0 and rt.routing_mode != "scan":
+            # probe-path re-rank only; the scan keeps unpacked bits instead
+            t0 = time.perf_counter()
+            self.point_codes = coding.words_to_torch(codes, self.device)
+            self._sync()
+            self._codes_host = codes
+            self.finalize_sec["rerank_codes_upload"] = \
+                time.perf_counter() - t0
+        if rt.routing_mode == "scan":
+            self._scan_codes = codes               # persisted by save_table
+            t0 = time.perf_counter()
+            self._scan_state = self._make_scan_state(codes)
+            self._sync()
+            self.finalize_sec["scan_upload"] = time.perf_counter() - t0
+        wide = self._wide_keys()
         t0 = time.perf_counter()
-        self._scan_state = self._make_scan_state(codes)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.finalize_sec["scan_upload"] = time.perf_counter() - t0
+        if rt.encode_backend == "cpu":
+            # sort/build on the host too (numpy), then ship the compact
+            # table to the device in one transfer
+            table = partition.build_partitions_numpy(
+                np.ascontiguousarray(keys.T),
+                np.ascontiguousarray(np.transpose(codes, (1, 0, 2))),
+                rt.block_size, wide=wide)
+            self.finalize_sec["table_build"] = time.perf_counter() - t0
+            self._table_host = table
+            t0 = time.perf_counter()
+            self.table = partition.table_to(table, self.device)
+            self._sync()
+            self.finalize_sec["table_upload"] = time.perf_counter() - t0
+        else:
+            # the codes cross to the device once; the re-rank copy is reused
+            codes_dev = self.point_codes if self.point_codes is not None \
+                else coding.words_to_torch(codes, self.device)
+            self.table = partition.build_partitions(
+                torch.from_numpy(keys).to(self.device).T.contiguous(),
+                codes_dev.permute(1, 0, 2).contiguous(), rt.block_size,
+                wide=wide)
+            del codes_dev
+            self._sync()
+            self.finalize_sec["table_build"] = time.perf_counter() - t0
         self._n_rows = len(ids)
-        self._codes.clear(); self._ids.clear()
+        self._codes.clear(); self._keys.clear(); self._ids.clear()
         self.frozen = True
         self._tombstones_dirty = True
+        if self.table_path:
+            t0 = time.perf_counter()
+            self.save_table(self.table_path)
+            self.finalize_sec["save_table"] = time.perf_counter() - t0
 
     def append_rows(self, ids: np.ndarray, vecs: np.ndarray) -> None:
         raise NotImplementedError("live insert is not ported yet")
-
-    def load_table(self, path: str, expect_rows: int | None = None) -> bool:
-        """No table checkpoint is written by this port yet: restore always
-        takes the decrypt-and-rebuild path."""
-        return False
 
     # -- deletion ---------------------------------------------------------------------
 
@@ -275,14 +351,24 @@ class PartitionedIndex:
                                    np.fromiter(self._deleted, np.int64))
                     t[mask] = True
             self._tombstones_np = t
+            self._tombstones_dev = None
             self._tombstones_scan_dev = None
             self._tombstones_dirty = False
         return self._tombstones_np
+
+    def _tombstones(self) -> torch.Tensor:
+        """bool [N] dead mask on the index device."""
+        host = self._tombstones_host()
+        if self._tombstones_dev is None:
+            self._tombstones_dev = torch.from_numpy(host).to(self.device)
+        return self._tombstones_dev
 
     def _tombstones_scan(self) -> torch.Tensor:
         """Device tombstones sized to the scan state's row count: live rows
         carry the regular mask, capacity padding is permanently dead."""
         host = self._tombstones_host()
+        if self._scan_rows <= len(host):
+            return self._tombstones()
         if self._tombstones_scan_dev is None:
             t = np.ones(self._scan_rows, bool)
             t[:len(host)] = host
@@ -292,44 +378,73 @@ class PartitionedIndex:
     # -- query ------------------------------------------------------------------------
 
     def encode_queries(self, queries: np.ndarray):
+        """(uint32 codes [Q, G, W], int64 keys [Q, G]) as numpy arrays.
+        Queries must be coded on the same backend as the corpus — float32
+        rounding differs across backends exactly at bucket boundaries."""
         if self.bank is None:
             raise IndexNotFinalized("bank not initialized")
-        # queries must be coded on the same backend as the corpus — f32
-        # matmul rounding differs across backends exactly at bucket
-        # boundaries
-        return coding.encode_numpy(np.asarray(queries, np.float32),
-                                   self.bank)
+        return self._encode(np.asarray(queries, np.float32))
 
     def route_batch(self, qcodes, qkeys, probes: int | None = None,
                     refinement_limit: int | None = None) -> routing.RouteResult:
-        """Stage A for a query batch: the Hamming scan over every row.
-        Returned ids are EXTERNAL point ids; on the dense path they stay on
-        the scan device (the query service copies them to the host
-        asynchronously)."""
-        if not self.frozen or self._scan_state is None:
+        """Stage A for a query batch.  Returned ids are EXTERNAL point ids;
+        on the dense path they stay on the index device (the query service
+        copies them to the host asynchronously)."""
+        if not self.frozen or self.table is None:
             raise IndexNotFinalized(
                 "query before finalizeForSearch "
                 "(reference PartitionedIndexService.java:461)")
         rt = self.cfg.runtime
         _check_ported(self.cfg)
-        # global fine ranking, probes are moot — the caller's
-        # refinement_limit IS honored (it is the decrypt budget L; the
-        # adaptive-retry pass widens it).  When the [Q, N] rank scratch
-        # outgrows the device budget, switch to the chunked running-top-L
-        # variant.
-        scan_l = min(refinement_limit or rt.effective_refinement(),
-                     self._n_rows)
-        qbits = torch.from_numpy(hamming_scan.unpack_bits_numpy(
-            np.asarray(qcodes), self.cfg.paper.code_bits)).to(self.device)
-        flat_bytes = qbits.shape[0] * self._scan_rows * 12
-        scan_fn = hamming_scan.scan \
-            if flat_bytes <= self._scan_flat_budget() \
-            else hamming_scan.scan_chunked
-        res = scan_fn(self._scan_state, qbits, self._tombstones_scan(),
-                      scan_l, anchor=rt.adaptive_decrypt_anchor,
-                      margin=rt.adaptive_decrypt_margin,
-                      floor=rt.adaptive_decrypt_floor)
+        probes = probes or rt.effective_probes()
+        limit = refinement_limit or rt.refinement_limit
+        if rt.routing_mode == "scan" and self._scan_state is not None:
+            # global fine ranking, probes are moot — the caller's
+            # refinement_limit IS honored (it is the decrypt budget L; the
+            # adaptive-retry pass widens it).  When the [Q, N] rank scratch
+            # outgrows the device budget, switch to the chunked
+            # running-top-L variant.
+            scan_l = min(refinement_limit or rt.effective_refinement(),
+                         self._n_rows)
+            qbits = torch.from_numpy(hamming_scan.unpack_bits_numpy(
+                self._host_words(qcodes), self.cfg.paper.code_bits)
+            ).to(self.device)
+            flat_bytes = qbits.shape[0] * self._scan_rows * 12
+            scan_fn = hamming_scan.scan \
+                if flat_bytes <= self._scan_flat_budget() \
+                else hamming_scan.scan_chunked
+            res = scan_fn(self._scan_state, qbits, self._tombstones_scan(),
+                          scan_l, anchor=rt.adaptive_decrypt_anchor,
+                          margin=rt.adaptive_decrypt_margin,
+                          floor=rt.adaptive_decrypt_floor)
+        elif self._table_stale:
+            raise RuntimeError(
+                "partition table stale after live inserts — probe routing "
+                "needs a rebuild; serve with routing_mode='scan'")
+        else:
+            qc = coding.words_to_torch(self._host_words(qcodes), self.device)
+            qk = torch.as_tensor(qkeys if isinstance(qkeys, torch.Tensor)
+                                 else np.asarray(qkeys, np.int64),
+                                 dtype=torch.int64).to(self.device)
+            if self.point_codes is not None and rt.rerank_limit > 0:
+                # fused probe → dedup → fine score → top-k (the candidate
+                # pool is the full probed set; the decrypt set is the best
+                # rerank_limit by exact code Hamming)
+                res = routing.route_rerank(self.table, qc, qk,
+                                           self._tombstones(),
+                                           self.point_codes, probes,
+                                           rt.rerank_limit)
+            else:
+                res = routing.route(self.table, qc, qk, self._tombstones(),
+                                    probes, limit)
         return self._map_external(res)
+
+    @staticmethod
+    def _host_words(qcodes) -> np.ndarray:
+        """Query codes as uint32 numpy words (tokens carry numpy codes)."""
+        if isinstance(qcodes, torch.Tensor):
+            return coding.words_to_numpy(qcodes)
+        return np.asarray(qcodes, np.uint32)
 
     def _map_external(self, res: routing.RouteResult) -> routing.RouteResult:
         """Row indices → external point ids (identity for dense builds;
@@ -399,3 +514,96 @@ class PartitionedIndex:
         if self._dense:
             return self._n_rows - 1
         return int(self._row_ids.max(initial=-1))
+
+    def _wide_keys(self) -> bool:
+        """Resolve ``runtime.wide_keys`` against this index's code width
+        (ops/partition — full code-prefix order past the 63-bit key)."""
+        return self.cfg.runtime.wide_keys_active(self.cfg.paper.code_bits)
+
+    # -- table checkpoint ---------------------------------------------------------
+
+    def save_table(self, path: str) -> None:
+        """Persist the frozen partition table — the fast-restore path, in
+        the JAX package's ``table.npz`` format (same keys and dtypes).  The
+        reference rebuilds routing state by decrypting every ciphertext
+        (restoreIndexFromDisk:926-948); the table is deterministic given the
+        data, so persisting it skips that work.  Tagged with the config so a
+        mismatched profile falls back to the rebuild path."""
+        t = self._table_host if self._table_host is not None \
+            else partition.table_to_numpy(self.table)
+        pp = self.cfg.paper
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        extra = {}
+        if self._scan_codes is not None:   # scan mode
+            extra["point_codes"] = self._scan_codes
+        elif self._codes_host is not None:
+            extra["point_codes"] = self._codes_host
+        elif self.point_codes is not None:
+            extra["point_codes"] = coding.words_to_numpy(self.point_codes)
+        if t.min_key2 is not None:
+            extra["min_key2"] = np.asarray(t.min_key2)
+            extra["max_key2"] = np.asarray(t.max_key2)
+        np.savez(tmp,
+                 min_key=np.asarray(t.min_key), max_key=np.asarray(t.max_key),
+                 rep_codes=np.asarray(t.rep_codes), ids=np.asarray(t.ids),
+                 counts=np.asarray(t.counts), row_ids=self._row_ids,
+                 dense=self._dense, n_rows=self._n_rows, dim=self.dim,
+                 m=pp.m, lam=pp.lam, tables=pp.tables,
+                 divisions=pp.divisions, seed=pp.seed,
+                 block=self.cfg.runtime.block_size,
+                 table_stale=self._table_stale, **extra)
+        os.replace(tmp + ".npz", path)
+
+    def load_table(self, path: str, expect_rows: int | None = None) -> bool:
+        """Fast restore: load a persisted table (the port's or the JAX
+        package's).  Returns False (caller does the decrypt-and-rebuild)
+        when config or corpus shape disagree."""
+        if not os.path.exists(path) or self.bank is None:
+            return False
+        z = np.load(path)
+        pp = self.cfg.paper
+        if (int(z["dim"]), int(z["m"]), int(z["lam"]), int(z["tables"]),
+                int(z["divisions"]), int(z["seed"]),
+                int(z["block"])) != (self.dim, pp.m, pp.lam, pp.tables,
+                                     pp.divisions, pp.seed,
+                                     self.cfg.runtime.block_size):
+            return False
+        if expect_rows is not None and int(z["n_rows"]) != expect_rows:
+            return False
+        rt = self.cfg.runtime
+        stale = bool(z["table_stale"]) if "table_stale" in z.files else False
+        if stale and rt.routing_mode != "scan":
+            return False   # probe restore needs the decrypt-and-rebuild path
+        if rt.rerank_limit > 0 or rt.routing_mode == "scan":
+            if "point_codes" not in z.files:
+                return False   # checkpoint predates rerank/scan — rebuild
+            codes = z["point_codes"].astype(np.uint32)
+            if codes.shape != (int(z["n_rows"]), pp.num_groups,
+                               pp.code_words):
+                # truncated/mismatched checkpoint: take the
+                # decrypt-and-rebuild path instead
+                return False
+            if rt.rerank_limit > 0 and rt.routing_mode != "scan":
+                self.point_codes = coding.words_to_torch(codes, self.device)
+                self._codes_host = codes
+            if rt.routing_mode == "scan":
+                self._scan_codes = codes
+                self._scan_state = self._make_scan_state(codes)
+        saved_wide = "min_key2" in z.files
+        if saved_wide != self._wide_keys():
+            return False   # key-width mismatch: decrypt-and-rebuild
+        table_np = PartitionTable(
+            z["min_key"], z["max_key"], z["rep_codes"].astype(np.uint32),
+            z["ids"].astype(np.int32), z["counts"].astype(np.int32),
+            z["min_key2"] if saved_wide else None,
+            z["max_key2"] if saved_wide else None)
+        self._table_host = table_np
+        self.table = partition.table_to(table_np, self.device)
+        self._row_ids = z["row_ids"].astype(np.int64)
+        self._dense = bool(z["dense"])
+        self._n_rows = int(z["n_rows"])
+        self.frozen = True
+        self._table_stale = stale
+        self._tombstones_dirty = True
+        return True

@@ -1,4 +1,4 @@
-"""LSH coding (reference "Algorithm-1"): bank construction + host encode.
+"""LSH coding (reference "Algorithm-1"): bank construction, host and device encode.
 
 Reference behavior being reproduced (index/paper/Coding.java):
 
@@ -19,8 +19,15 @@ from ``seed`` — NOT the JAX package's threefry stream, so the same seed
 gives a different bank there.  Tests and cross-package runs carry a JAX bank
 across with :func:`fspann_tpu_torch.api.convert.bank_from_jax`.
 
-The serving path encodes on the host (:func:`encode_numpy`, numpy BLAS);
-device encode (``project_h``/``pack_codes``/``encode``) is not ported yet.
+Two encoders, as in the JAX package: :func:`encode_numpy` on the host
+(numpy BLAS; ``encode_backend="cpu"``) and :func:`encode` on the tensor's
+device (``encode_backend="default"``).  On the device, packed words are
+int32 tensors holding the uint32 bit patterns of the JAX package's words
+(:func:`words_to_torch` / :func:`words_to_numpy` convert); every reader that
+needs their unsigned value widens to int64 and masks.  The projection runs
+in full float32 (TF32 off), but its rounding still differs from numpy's and
+XLA's, so a point sitting on a bucket boundary can flip a code bit between
+the two encoders — corpus and queries must be encoded on the same backend.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .refine import full_fp32_matmul
 
 # fold-in tags separating the alpha and offset streams of one seed
 _ALPHA_TAG = 0x414C5048
@@ -128,6 +138,158 @@ def bank_from_stats(omega: np.ndarray, r: np.ndarray, d: int, m: int, lam: int,
     return GBank(alpha, np.asarray(r, np.float32),
                  np.asarray(omega, np.float32), m, lam, tables, divisions,
                  seed)
+
+
+def _f32(a, device) -> torch.Tensor:
+    """A bank array (numpy, or a tensor already) as float32 on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def bank_to(bank: GBank, device) -> GBank:
+    """The bank with its arrays as float32 tensors on ``device`` (the index
+    keeps one such copy instead of moving ``alpha`` every batch)."""
+    return GBank(_f32(bank.alpha, device), _f32(bank.r, device),
+                 _f32(bank.omega, device), bank.m, bank.lam, bank.tables,
+                 bank.divisions, bank.seed)
+
+
+# ----------------------------------------------------------------------------
+# Packed words on the device
+# ----------------------------------------------------------------------------
+
+def words_to_torch(codes: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 words (numpy) → int32 tensor of the same bit patterns."""
+    t = torch.from_numpy(np.ascontiguousarray(codes, np.uint32).view(np.int32))
+    return t if device is None else t.to(device)
+
+
+def words_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor → uint32 words (numpy, on the host)."""
+    return words.to(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """The unsigned value of 32-bit word patterns, as int64."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def _as_int32_pattern(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) → int32 tensor with the same low 32 bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+# ----------------------------------------------------------------------------
+# Device encode path (encode_backend="default")
+# ----------------------------------------------------------------------------
+
+def project_h(x: torch.Tensor, bank: GBank) -> torch.Tensor:
+    """``H`` for a batch: int32 [N, G, m] (reference Coding.H:250-258).
+    The product runs in full float32 on CUDA (TF32 off), the counterpart of
+    the JAX package's ``Precision.HIGHEST``."""
+    dev = x.device
+    a, r, om = (_f32(v, dev) for v in (bank.alpha, bank.r, bank.omega))
+    g, m, d = a.shape
+    with full_fp32_matmul():
+        y = (x.to(torch.float32) @ a.reshape(g * m, d).T).reshape(
+            *x.shape[:-1], g, m)
+    return torch.floor((y + r) / om).to(torch.int32)
+
+
+def pack_codes(h: torch.Tensor, m: int, lam: int) -> torch.Tensor:
+    """Interleave + pack ``H`` into 32-bit words, MSB-first.
+
+    Position ``p = l*m + j`` (level l = 0 is the most significant bit of each
+    h_j) is stored at bit ``31 - p%32`` of word ``p//32``, so word-wise
+    unsigned lexicographic order == code prefix order.
+    Output: int32 bit patterns [..., W] (the weighted sum runs in int64).
+    """
+    bits_total = m * lam
+    w = (bits_total + 31) // 32
+    hu = _u32(h)
+    shifts = torch.arange(lam - 1, -1, -1, dtype=torch.int64, device=h.device)
+    bits = (hu[..., None, :] >> shifts[:, None]) & 1          # [..., lam, m]
+    bits = bits.reshape(*h.shape[:-1], bits_total)
+    pad = w * 32 - bits_total
+    if pad:
+        bits = F.pad(bits, (0, pad))
+    bits = bits.reshape(*h.shape[:-1], w, 32)
+    weights = 1 << (31 - torch.arange(32, dtype=torch.int64, device=h.device))
+    return _as_int32_pattern((bits * weights).sum(dim=-1))
+
+
+def keys_from_codes(codes: torch.Tensor) -> torch.Tensor:
+    """63-bit sortable key from packed code words
+    (reference GreedyPartitioner.computeKey:87-96).
+
+    key bit ``62-p`` = code bit ``p`` for ``p < 63``; with MSB-first packing
+    this is ``(w0 << 31) | (w1 >> 1)`` over the words' unsigned values.
+    """
+    w0 = _u32(codes[..., 0])
+    if codes.shape[-1] > 1:
+        return (w0 << 31) | (_u32(codes[..., 1]) >> 1)
+    return w0 << 31
+
+
+def keys2_from_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Secondary sort key: code bits 63..125 (the bits the 63-bit primary
+    key truncates), MSB-first — ``key2 bit 62-(p-63) = code bit p``.
+
+    Sorting by the (key, key2) pair restores the exact code-prefix order up
+    to 126 bits (``runtime.wide_keys``); for ``m*lam <= 63`` key2 == 0
+    everywhere and the pair order is the reference order.  Bit 63 is
+    word1's LSB, bits 64..95 are word2, bits 96..125 the top 30 bits of
+    word3.
+    """
+    w = codes.shape[-1]
+    z = torch.zeros(codes.shape[:-1], dtype=torch.int64, device=codes.device)
+    w1 = _u32(codes[..., 1]) if w > 1 else z
+    w2 = _u32(codes[..., 2]) if w > 2 else z
+    w3 = _u32(codes[..., 3]) if w > 3 else z
+    return ((w1 & 1) << 62) | (w2 << 30) | (w3 >> 2)
+
+
+def keys2_from_codes_numpy(codes: "np.ndarray") -> "np.ndarray":
+    """Numpy twin of :func:`keys2_from_codes` (host build path)."""
+    w = codes.shape[-1]
+    z = np.zeros(codes.shape[:-1], np.int64)
+    w1 = codes[..., 1].astype(np.int64) if w > 1 else z
+    w2 = codes[..., 2].astype(np.int64) if w > 2 else z
+    w3 = codes[..., 3].astype(np.int64) if w > 3 else z
+    return ((w1 & 1) << 62) | (w2 << 30) | (w3 >> 2)
+
+
+def h1(x: torch.Tensor, bank: GBank) -> torch.Tensor:
+    """Collapse multi-projection H into one int32 hash per (vector, group)
+    via 31x+h mixing (reference Coding.H1:264-271), with int32 wraparound
+    made explicit in int64."""
+    h = project_h(x, bank).to(torch.int64)
+    acc = torch.zeros(h.shape[:-1], dtype=torch.int64, device=h.device)
+    for j in range(h.shape[-1]):
+        acc = ((acc * 31 + h[..., j] + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    return acc.to(torch.int32)
+
+
+def encode(x: torch.Tensor, bank: GBank, chunk: int = 16_384
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full coding pipeline on ``x``'s device: vectors → (packed codes,
+    sort keys).
+
+    Returns ``codes: int32 [N, G, W]`` (uint32 bit patterns) and
+    ``keys: int64 [N, G]``.  Rows go through in ``chunk`` blocks so the
+    int64 bit scratch of :func:`pack_codes` stays bounded; every op is
+    row-local, so the result does not depend on the chunking.
+    """
+    n = x.shape[0]
+    codes = torch.empty((n, bank.g, bank.code_words), dtype=torch.int32,
+                        device=x.device)
+    keys = torch.empty((n, bank.g), dtype=torch.int64, device=x.device)
+    for lo in range(0, n, chunk):
+        c = pack_codes(project_h(x[lo:lo + chunk], bank), bank.m, bank.lam)
+        codes[lo:lo + len(c)] = c
+        keys[lo:lo + len(c)] = keys_from_codes(c)
+    return codes, keys
 
 
 # ----------------------------------------------------------------------------

@@ -1,21 +1,33 @@
-"""Brute-force exact L2 top-K: the plain torch twin of the L2 top-k kernel.
+"""Stage C refine on the device, and brute-force exact L2 top-K.
 
-Reference behavior (api/GroundtruthPrecompute.java): exact top-K over the
-whole base.  Chunked ``|x|^2 - 2 q·x`` with a float32 ``torch.matmul`` (TF32
-off, set explicitly for the call), a per-chunk top-K in ``(d², id)`` order
-and a running merge.  ``ops/l2_topk.l2_topk`` uses this for CPU tensors and
+:func:`refine` (``refine_backend="device"``; reference
+query/QueryServiceImpl.java:238-322): exact L2 of each decrypted candidate
+to its query and the top-K, over one dense ``[Q, R, d]`` batch.
+
+:func:`bruteforce_topk` (reference api/GroundtruthPrecompute.java), the
+plain torch twin of the L2 top-k kernel: exact top-K over the whole base.
+Chunked ``|x|^2 - 2 q·x`` with a float32 ``torch.matmul`` (TF32 off, set
+explicitly for the call), a per-chunk top-K in ``(d², id)`` order and a
+running merge.  ``ops/l2_topk.l2_topk`` uses this for CPU tensors and
 ``chip_smoke.py`` holds the CUDA kernel to it on the card.
 
-Device refine of decrypted candidates (``refine_backend="device"``) is not
-ported yet; the serving path scores on the host (query/service.py).
+Both rank on one int64 key ``(sortable(d²) << 32) | column``, the
+lower-index-first tie order of ``lax.top_k``.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class RefineResult(NamedTuple):
+    ids: torch.Tensor        # int32 [Q, K]  (-1 = pad)
+    distances: torch.Tensor  # f32 [Q, K]    L2 (sqrt), inf = pad
+    n_scored: torch.Tensor   # int32 [Q]
 
 
 @contextlib.contextmanager
@@ -39,6 +51,44 @@ def _sortable(d2: torch.Tensor) -> torch.Tensor:
 
 def _pair_topk(key: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(key, k, dim=1, largest=False, sorted=True).values
+
+
+def refine(qvecs: torch.Tensor, cand_vecs: torch.Tensor,
+           cand_ids: torch.Tensor, valid: torch.Tensor,
+           k: int) -> RefineResult:
+    """Exact L2 + top-K over a decrypted candidate batch, on the inputs'
+    device.
+
+    Args:
+      qvecs: f32 [Q, d] plaintext queries.
+      cand_vecs: f32 (or f16) [Q, R, d] decrypted candidate vectors
+        (garbage where ``valid`` is False).
+      cand_ids: int32 [Q, R].
+      valid: bool [Q, R] — candidate present and decrypted successfully.
+      k: top-K.  Where R < k the result is padded (-1, inf).
+    """
+    qv = qvecs.to(torch.float32)
+    cv = cand_vecs.to(torch.float32)
+    diff = cv - qv[:, None, :]
+    d2 = (diff * diff).sum(dim=-1)                                # [Q, R]
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    q, r = d2.shape
+    kk = min(k, r)
+    col = torch.arange(r, dtype=torch.int64, device=d2.device)
+    key = _pair_topk((_sortable(d2).to(torch.int64) << 32) | col, kk)
+    idx = key & 0xFFFFFFFF
+    ok = valid.gather(1, idx)
+    d2_sel = d2.gather(1, idx)
+    # safe-where: never feed inf to sqrt
+    dist = torch.where(ok, torch.sqrt(torch.where(ok, d2_sel,
+                                                  torch.zeros_like(d2_sel))),
+                       torch.full_like(d2_sel, float("inf")))
+    ids = torch.where(ok, cand_ids.to(torch.int32).gather(1, idx),
+                      torch.full_like(idx, -1, dtype=torch.int32))
+    if kk < k:
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+        dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
+    return RefineResult(ids, dist, valid.sum(dim=-1, dtype=torch.int32))
 
 
 def bruteforce_topk(base: torch.Tensor | np.ndarray,

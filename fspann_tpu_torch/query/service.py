@@ -2,12 +2,16 @@
 
 Pipeline per batch of tokens:
   Stage A  — device routing: ranked candidate ids per query (index.route_batch)
-  Stage B  — host bulk load + ONE batched multi-key AES-GCM open, fused with
-             scoring (the C loop emits each candidate's norm and query dot)
-  Stage C  — host exact L2 + top-K from those scalars
+  Stage B  — host bulk load + ONE batched multi-key AES-GCM open; with
+             ``refine_backend="host"`` fused with scoring (the C loop emits
+             each candidate's norm and query dot), with "device" into a
+             staging matrix
+  Stage C  — "host": exact L2 + top-K from those scalars; "device": the
+             [Q, R, d] candidates go to the index device for ops/refine
   Retry    — queries with returned < K or decrypted < min(10*K, limit) are
-             re-run ONCE as a sub-batch with a widened decrypt budget
-             (reference adaptive retry :327-337, needRetry :444-447)
+             re-run ONCE as a sub-batch with widened probes (probe mode,
+             reference probeOverride=10) or a widened decrypt budget (scan
+             mode) (reference adaptive retry :327-337, needRetry :444-447)
   Tracking — successfully refined ids recorded into the ReencryptionTracker
              (reference :342-351 in a finally block)
 
@@ -29,6 +33,7 @@ from ..config import SystemConfig
 from ..crypto.keys import KeyManager
 from ..crypto.rotation import ReencryptionTracker
 from ..index.service import PartitionedIndex
+from ..ops import refine as refine_ops
 from ..store.point_store import PointStore
 from ..types import QueryResult, QueryToken, SearchStats
 
@@ -136,9 +141,10 @@ class QueryService:
         # carried across batches so the slice is dispatched AT ROUTE TIME
         # (overlapped) instead of as a serial round trip at consume time
         self._slice_pred: int | None = None
-        # reusable decrypt-and-score outputs (grown on demand): avoids
-        # page-faulting fresh candidate-set-sized buffers every batch; rows
-        # are masked by `ok`, never read stale
+        # reusable decrypt staging and decrypt-and-score outputs (grown on
+        # demand): avoids page-faulting fresh candidate-set-sized buffers
+        # every batch; rows are masked by `ok`, never read stale
+        self._stage_buf = np.zeros(0, np.float32)
         self._norms_buf = np.zeros(0, np.float32)
         self._dots_buf = np.zeros(0, np.float32)
 
@@ -373,23 +379,46 @@ class QueryService:
 
         q, r = cand_ids.shape
         flat = np.ascontiguousarray(cand_ids).reshape(-1)
-        # fused decrypt-and-score: the C AES loop emits per-candidate
-        # (norm, query-dot) while each row is in L1 — the plaintext never
-        # reaches DRAM, and no candidate matrix exists to re-read
-        if self._norms_buf.size < flat.size:
-            self._norms_buf = np.zeros(flat.size, np.float32)
-        if self._dots_buf.size < flat.size:
-            self._dots_buf = np.zeros(flat.size, np.float32)
-        norms = self._norms_buf[:flat.size]
-        dots = self._dots_buf[:flat.size]
-        ok_flat = self.store.load_score_batch(flat, qvecs, r, norms, dots)
-        valid = ok_flat.reshape(q, r)
-        if touched_parts is not None:
-            touched_parts.append(flat[ok_flat])
-        t2 = time.perf_counter()
-        ids, dists, n_scored = _host_refine_scored(
-            qvecs, dots.reshape(q, r), norms.reshape(q, r), cand_ids, valid,
-            k)
+        dim = self.index.dim
+        if self.cfg.runtime.refine_backend == "device":
+            if self._stage_buf.size < flat.size * dim:
+                self._stage_buf = np.zeros(flat.size * dim, np.float32)
+            out = self._stage_buf[:flat.size * dim].reshape(flat.size, dim)
+            # no norms_out: the device refine computes distances from the
+            # candidate matrix itself
+            vecs_flat, ok_flat = self.store.load_decrypt_batch(flat, out=out)
+            valid = ok_flat.reshape(q, r)
+            if touched_parts is not None:
+                touched_parts.append(flat[ok_flat])
+            t2 = time.perf_counter()
+            dev = self.index.device
+            res = refine_ops.refine(
+                torch.from_numpy(qvecs).to(dev),
+                torch.from_numpy(vecs_flat.reshape(q, r, dim)).to(dev),
+                torch.from_numpy(cand_ids.astype(np.int32)).to(dev),
+                torch.from_numpy(valid).to(dev), k)
+            ids = res.ids.cpu().numpy().astype(np.int64)  # retry mutates
+            dists = res.distances.cpu().numpy()
+            n_scored = res.n_scored.cpu().numpy()
+        else:
+            # fused decrypt-and-score: the C AES loop emits per-candidate
+            # (norm, query-dot) while each row is in L1 — the plaintext
+            # never reaches DRAM, and no candidate matrix exists to re-read
+            if self._norms_buf.size < flat.size:
+                self._norms_buf = np.zeros(flat.size, np.float32)
+            if self._dots_buf.size < flat.size:
+                self._dots_buf = np.zeros(flat.size, np.float32)
+            norms = self._norms_buf[:flat.size]
+            dots = self._dots_buf[:flat.size]
+            ok_flat = self.store.load_score_batch(flat, qvecs, r, norms,
+                                                  dots)
+            valid = ok_flat.reshape(q, r)
+            if touched_parts is not None:
+                touched_parts.append(flat[ok_flat])
+            t2 = time.perf_counter()
+            ids, dists, n_scored = _host_refine_scored(
+                qvecs, dots.reshape(q, r), norms.reshape(q, r), cand_ids,
+                valid, k)
         t3 = time.perf_counter()
 
         stats = []

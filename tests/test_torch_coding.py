@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from fspann_tpu.ops import coding as jcoding
 from fspann_tpu_torch.api.convert import bank_from_jax
 from fspann_tpu_torch.ops import coding
@@ -91,3 +93,51 @@ def test_bank_from_jax_rejects_mismatched_shapes(rng):
     with pytest.raises(ValueError):
         bank_from_jax(np.asarray(jb.alpha), np.asarray(jb.r),
                       -np.asarray(jb.omega), 4, 2, 2, 2, 1)
+
+
+def _flipped_bits(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.unpackbits((a ^ b).view(np.uint8)).sum())
+
+
+@pytest.mark.parametrize("m,lam,tables,divisions", [(6, 2, 2, 2),
+                                                    (64, 2, 2, 3),
+                                                    (21, 3, 1, 2)])
+def test_device_encode_flips_at_most_1e4_of_the_bits(rng, m, lam, tables,
+                                                     divisions):
+    """Device encode (``encode_backend="default"``) against the JAX device
+    encoder and both host encoders: the float32 products round differently,
+    so a coordinate on a bucket boundary may flip a bit; at most 1e-4 of
+    all code bits may differ.  Keys and packing are exact given the codes."""
+    d = 16
+    sample = rng.normal(size=(1000, d)).astype(np.float32) * 3
+    x = rng.normal(size=(2000, d)).astype(np.float32) * 3
+    jb = jcoding.build_bank_from_sample(sample, m, lam, tables, divisions, 7)
+    bank = _carry(jb)
+    tc, tk = coding.encode(torch.from_numpy(x), bank, chunk=333)
+    assert tc.dtype == torch.int32 and tk.dtype == torch.int64
+    codes = coding.words_to_numpy(tc)
+    bound = 1e-4 * x.shape[0] * bank.g * bank.code_bits
+    for ref in (np.asarray(jcoding.encode(x, jb)[0]),
+                jcoding.encode_numpy(x, jb)[0], coding.encode_numpy(x, bank)[0]):
+        assert _flipped_bits(codes, ref) <= bound
+    np.testing.assert_array_equal(tk.numpy(),
+                                  coding.keys_from_codes(tc).numpy())
+    # same codes from a device bank copy, and chunking changes nothing
+    tc2, tk2 = coding.encode(torch.from_numpy(x), coding.bank_to(bank, "cpu"))
+    assert torch.equal(tc2, tc) and torch.equal(tk2, tk)
+
+
+def test_project_h_and_h1_match_jax(rng):
+    d = 12
+    x = rng.normal(size=(500, d)).astype(np.float32) * 2
+    jb = jcoding.build_bank_from_sample(x, 16, 2, 2, 2, 3)
+    bank = _carry(jb)
+    h = coding.project_h(torch.from_numpy(x), bank).numpy()
+    hj = np.asarray(jcoding.project_h(jnp.asarray(x), jb))
+    assert h.dtype == np.int32
+    assert (h != hj).mean() <= 1e-4
+    assert np.abs(h.astype(np.int64) - hj).max() <= 1
+    same = (h == hj).all(axis=(1, 2))
+    h1 = coding.h1(torch.from_numpy(x), bank).numpy()
+    np.testing.assert_array_equal(h1[same],
+                                  np.asarray(jcoding.h1(jnp.asarray(x), jb))[same])

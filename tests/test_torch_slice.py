@@ -117,8 +117,9 @@ def test_delete_and_undelete_match(pair):
 
 
 def test_restore_rebuilds_identical_index(pair):
-    """No table checkpoint in the port yet: restore decrypts and re-encodes
-    with the persisted bank (alpha included), and serves the same results."""
+    """Restore loads the table checkpoint written at finalize (scan mode
+    keeps the packed codes in it) with the persisted bank (alpha included),
+    and serves the same results."""
     _, ts, base, queries, root = pair
     before = [[(r.id, r.distance) for r in ts.search(ts.create_token(q, 10))]
               for q in queries[:4]]
@@ -127,6 +128,9 @@ def test_restore_rebuilds_identical_index(pair):
                                   query_batch=BATCH)
     try:
         assert back.restore_index_from_disk() == N
+        assert back.index._table_host is not None      # the fast path
+        np.testing.assert_array_equal(back.index._scan_codes,
+                                      ts.index._scan_codes)
         np.testing.assert_array_equal(back.index.bank.alpha,
                                       ts.index.bank.alpha)
         after = [[(r.id, r.distance)
@@ -137,17 +141,41 @@ def test_restore_rebuilds_identical_index(pair):
         back.shutdown()
 
 
-def test_unported_modes_raise(tmp_path):
+def test_jax_scan_table_npz_restores_in_port(pair):
+    """A JAX scan-mode table.npz (table + packed codes) loads unchanged and
+    the restored scan routes like the JAX index."""
+    from fspann_tpu_torch.index.service import PartitionedIndex
+
+    js, ts, base, queries, root = pair
+    idx = PartitionedIndex(_cfg(tconfig), D, device="cpu")
+    idx.set_bank(ts.index.bank)
+    assert idx.load_table(str(root / "jax" / "table.npz"), expect_rows=N)
+    jq = js.index.encode_queries(queries[:BATCH])
+    jr = js.index.route_batch(*jq)
+    tr = idx.route_batch(*(np.asarray(a) for a in jq))
+    for f in ("ids", "scores", "n_unique", "n_raw", "n_dec"):
+        np.testing.assert_array_equal(getattr(tr, f).numpy(),
+                                      np.asarray(getattr(jr, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["scan_packed", "scan_native",
+                                  "append_rows"])
+def test_unported_modes_raise(tmp_path, mode):
+    """What the port does not serve yet raises where it would be chosen."""
     import dataclasses
 
+    from fspann_tpu_torch.index.service import PartitionedIndex
+
     cfg = _cfg(tconfig)
-    for kw in ({"routing_mode": "probe"}, {"encode_backend": "default"},
-               {"refine_backend": "device"}, {"scan_packed": "on"},
-               {"scan_native": "on"}):
-        bad = dataclasses.replace(cfg, runtime=dataclasses.replace(
-            cfg.runtime, **kw))
+    if mode == "append_rows":
         with pytest.raises(NotImplementedError):
-            ForwardSecureANNSystem(bad, str(tmp_path / "x"), D)
+            PartitionedIndex(cfg, D).append_rows(
+                np.arange(2), np.zeros((2, D), np.float32))
+        return
+    bad = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, **{mode: "on"}))
+    with pytest.raises(NotImplementedError):
+        ForwardSecureANNSystem(bad, str(tmp_path / "x"), D)
 
 
 def test_jax_bank_file_is_refused(pair):
