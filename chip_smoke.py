@@ -5,7 +5,8 @@
 Phases (any failure raises and exits non-zero):
   1. a CUDA device must be present; print its name and power limit;
   2. build the kernels from the checkout's sources, all at once (one nvcc
-     for sm_90a per CUDA source, gcc for the host AES-GCM library);
+     for sm_90a per CUDA source, gcc for the host AES-GCM and packed
+     Hamming scan libraries);
   3. the L2 top-k kernel against its plain torch twin at d=128, K=100,
      262,144 base rows x 256 queries;
   4. the Hamming scan on CUDA against the same scan on the CPU: 100k rows
@@ -27,16 +28,35 @@ Phases (any failure raises and exits non-zero):
      ForwardSecureANNSystem: table, codes and refine on the card, both
      kernels launched, the first batch's CUDA route equal to the CPU route
      on copies of the same state; recall@10 >= 0.65 and ratio@100 <= 1.03.
-     ``--profile`` adds a torch.profiler pass over the served queries.
-Each served path (phases 5 and 8) runs with the kernels' launch counts set
-to 0 just before it and read just after.  The last two lines of standard
-output are the kernels' JSON record and the device JSON line.
+     ``--profile`` adds a torch.profiler pass over the served queries;
+  9. the packed scan state at phase 4's inputs: built on CUDA == built on
+     the CPU, the packed chunked scan == the unpacked flat scan on every
+     field (Q in {64, 7, 1}, chunk 32,768), ``update_rows`` into zero
+     padding keeps the words' storage and scans like a fresh build, and the
+     native host scan == the CUDA scan;
+ 10. the scan lifecycle at 1M through ForwardSecureANNSystem: phase 5's
+     store restored into a packed state padded to 1M + 65,536 rows, the
+     1,024 queries served with phase 5's exact ids and distances, 4 live
+     inserts of 16,384 rows in place and one past capacity, self search,
+     delete, rotation with re-encryption, flush_all and an unpacked restore
+     that reproduces the results;
+ 11. the same store served by the native host scan: the first batch's
+     route equals the CUDA scan's;
+ 12. the command line (``fspann_tpu_torch.api.cli``) on 100k rows of the
+     corpus with ``--gt AUTO`` and the HARD_SCAN profile of
+     configs/hard1m.json, then ``--query-only``: exit 0 and recall@10 at or
+     above CLI_RECALL_GATE.
+Each served path (phases 5, 8, 10 and 12) runs with the kernels' launch
+counts set to 0 just before it and read just after.  The last two lines of
+standard output are the kernels' JSON record and the device JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -150,17 +170,24 @@ def phase_topk(dev) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_scan(dev) -> None:
-    from fspann_tpu_torch.ops import hamming_scan as hs
-
+def scan_inputs():
+    """Phases 4 and 9: 100k rows of 3,072-bit codes (24 groups x 128 bits),
+    64 near (not equal) queries, 1% tombstones."""
     rng = np.random.default_rng(11)
-    n, g, w, cb = 100_000, 24, 4, 128           # 24 groups x 128 bits
+    n, g, w, cb = 100_000, 24, 4, 128
     codes = rng.integers(0, 1 << 32, (n, g, w), dtype=np.uint64) \
         .astype(np.uint32)
     qcodes = codes[rng.integers(0, n, 64)].copy()
     qcodes[:, :, 0] ^= rng.integers(0, 1 << 32, (64, g), dtype=np.uint64) \
-        .astype(np.uint32)                      # near, not equal, queries
+        .astype(np.uint32)
     tomb = rng.random(n) < 0.01
+    return codes, qcodes, tomb, cb
+
+
+def phase_scan(dev) -> float:
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    codes, qcodes, tomb, cb = scan_inputs()
     qbits = torch.from_numpy(hs.unpack_bits_numpy(qcodes, cb))
     states = {d: hs.build_scan_state(codes, cb, device=d)
               for d in ("cpu", dev)}
@@ -180,6 +207,7 @@ def phase_scan(dev) -> None:
     log(f"phase 4 scan 100k x 3072 bits, Q in (64, 7, 1), L=2000, margin "
         f"40: CUDA == CPU bit for bit (flat and chunked); CUDA flat scan at "
         f"Q=64: {ms:.3f} ms")
+    return ms
 
 
 def reset_launches() -> None:
@@ -196,94 +224,117 @@ def read_launches() -> dict:
     return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches}
 
 
-def phase_slice(dev, base, queries) -> dict:
-    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+def slice_cfg(**runtime):
+    """bench.py's scan operating point (phases 5, 10 and 11), with
+    ``runtime`` overrides."""
     from fspann_tpu_torch.config import SystemConfig
-    from fspann_tpu_torch.io import groundtruth
-    from fspann_tpu_torch.ops.l2_topk import l2_topk
-    from fspann_tpu_torch.ops.refine import bruteforce_topk
 
     cfg = SystemConfig()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, paper=dataclasses.replace(cfg.paper, tables=8, m=64),
         runtime=dataclasses.replace(
             cfg.runtime, storage_dtype="f16", encode_backend="cpu",
             probe_override=16, block_size=128, refinement_limit=56_000,
             max_global_candidates=56_000, rerank_limit=2000,
-            adaptive_decrypt_margin=40, routing_mode="scan")).validate()
-    work = tempfile.mkdtemp(prefix="fspann_smoke_")
-    try:
-        sys_ = ForwardSecureANNSystem(cfg, os.path.join(work, "db"), 128,
-                                      query_batch=64)
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()                   # counts from here are the path's
-        t0 = time.perf_counter()
-        sys_.index_stream(base, batch_size=100_000)
-        t_insert = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        sys_.finalize_for_search()
-        t_final = time.perf_counter() - t0
-        st = sys_.index._scan_state
-        bank = sys_.index.bank
-        log(f"  fingerprints: corpus {fingerprint(base, queries)}, bank "
-            f"{fingerprint(bank.alpha, bank.r, bank.omega)}, popcounts "
-            f"{fingerprint(st.popc.cpu().numpy())}")
-        require(st.bits.device.type == torch.device(dev).type, st.bits.device)
-        fs = {k: round(v, 2) for k, v in sys_.index.finalize_sec.items()}
-        log(f"  build {t_insert + t_final:.1f} s (insert {t_insert:.1f} + "
-            f"finalize {t_final:.1f}: {fs}); scan state "
-            f"{tuple(st.bits.shape)} int8 on {st.bits.device}, "
-            f"{st.bits.numel() / 1e9:.2f} GB")
-        t0 = time.perf_counter()
-        gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
-        torch.cuda.synchronize()
-        t_gt = time.perf_counter() - t0
-        sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
-        sys_.profiler.clear_rows()
-        t0 = time.perf_counter()
-        agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
-        wall = time.perf_counter() - t0
-        counts = read_launches()
-        launches = counts["l2_topk"]
-        require(launches > 0, "ground truth did not run the l2_topk kernel")
-        rows = [r for r in sys_.profiler.rows if r.k == 10]
-        nq = len(rows)
-        peak = torch.cuda.max_memory_allocated()
-        log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
-            f"{counts}")
-        log(f"  {agg.paper_line()}")
-        log(f"  q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  "
-            f"p50 {agg.p50_art_ms:.3f}  p95 {agg.p95_art_ms:.3f}  "
-            f"route {sum(r.route_ms for r in rows) / nq:.3f} ms  decrypt "
-            f"{sum(r.decrypt_ms for r in rows) / nq:.3f} ms  refine "
-            f"{sum(r.refine_ms for r in rows) / nq:.3f} ms per query")
-        r10, r100 = agg.recall_at_k[10], agg.recall_at_k[100]
-        ratio = agg.ratio_at_k[100]
-        log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
-            f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  "
-            f"peak device memory {peak / 2**30:.2f} GiB")
-        require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
-        require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
-        sys_.shutdown()
+            adaptive_decrypt_margin=40, routing_mode="scan",
+            **runtime)).validate()
 
-        # the kernel against its plain twin at the slice's GT shape
-        b = torch.from_numpy(base).to(dev)
-        q = torch.from_numpy(queries).to(dev)
-        ids_k, d_k = l2_topk(b, q, 100)
-        ids_p, d_p = bruteforce_topk(b, q, 100)
-        torch.cuda.synchronize()
-        err = check_topk(b, q, ids_k, d_k, ids_p, d_p)
-        p1 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
-        k1 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
-        k2 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
-        p2 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
-        log(f"  l2_topk at {N_SLICE}x128, {Q_SLICE} q, K=100: max |err| "
-            f"{err:.3e}; kernel {(k1 + k2) / 2:.3f} ms (turns {k1:.3f}, "
-            f"{k2:.3f}), plain {(p1 + p2) / 2:.3f} ms (turns {p1:.3f}, "
-            f"{p2:.3f})")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return counts
+
+def serve(sys_, queries, k: int = 100):
+    """ids [Q, k] and distances of ``queries`` through the query service:
+    the path ``run_queries`` serves through, without the facade's query
+    cache (which re-encryption does not invalidate)."""
+    b = sys_.query_batch
+    res = sys_.query_service.search_batches(
+        [sys_.tokens.create_batch(queries[s:s + b], k)
+         for s in range(0, len(queries), b)])
+    return (np.concatenate([r.ids for r in res]),
+            np.concatenate([r.distances for r in res]))
+
+
+def require_same(a, b, what) -> None:
+    require(np.array_equal(a[0], b[0]), f"{what}: ids differ")
+    require(np.array_equal(a[1], b[1]), f"{what}: distances differ")
+
+
+def phase_slice(dev, base, queries, work) -> tuple[dict, tuple]:
+    """Phase 5; leaves its store in ``work/db`` for phases 10 and 11 and
+    returns the kernel counts and every query's ids and distances."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.io import groundtruth
+    from fspann_tpu_torch.ops.l2_topk import l2_topk
+    from fspann_tpu_torch.ops.refine import bruteforce_topk
+
+    sys_ = ForwardSecureANNSystem(slice_cfg(), os.path.join(work, "db"),
+                                  128, query_batch=64)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+    t0 = time.perf_counter()
+    sys_.index_stream(base, batch_size=100_000)
+    t_insert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sys_.finalize_for_search()
+    t_final = time.perf_counter() - t0
+    st = sys_.index._scan_state
+    bank = sys_.index.bank
+    log(f"  fingerprints: corpus {fingerprint(base, queries)}, bank "
+        f"{fingerprint(bank.alpha, bank.r, bank.omega)}, popcounts "
+        f"{fingerprint(st.popc.cpu().numpy())}")
+    require(st.bits.device.type == torch.device(dev).type, st.bits.device)
+    fs = {k: round(v, 2) for k, v in sys_.index.finalize_sec.items()}
+    log(f"  build {t_insert + t_final:.1f} s (insert {t_insert:.1f} + "
+        f"finalize {t_final:.1f}: {fs}); scan state "
+        f"{tuple(st.bits.shape)} int8 on {st.bits.device}, "
+        f"{st.bits.numel() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
+    torch.cuda.synchronize()
+    t_gt = time.perf_counter() - t0
+    sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
+    sys_.profiler.clear_rows()
+    t0 = time.perf_counter()
+    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    launches = counts["l2_topk"]
+    require(launches > 0, "ground truth did not run the l2_topk kernel")
+    rows = [r for r in sys_.profiler.rows if r.k == 10]
+    nq = len(rows)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
+        f"{counts}")
+    log(f"  {agg.paper_line()}")
+    log(f"  q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  "
+        f"p50 {agg.p50_art_ms:.3f}  p95 {agg.p95_art_ms:.3f}  "
+        f"route {sum(r.route_ms for r in rows) / nq:.3f} ms  decrypt "
+        f"{sum(r.decrypt_ms for r in rows) / nq:.3f} ms  refine "
+        f"{sum(r.refine_ms for r in rows) / nq:.3f} ms per query")
+    r10, r100 = agg.recall_at_k[10], agg.recall_at_k[100]
+    ratio = agg.ratio_at_k[100]
+    log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
+        f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
+    require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
+    ref = serve(sys_, queries)
+    sys_.shutdown()
+
+    # the kernel against its plain twin at the slice's GT shape
+    b = torch.from_numpy(base).to(dev)
+    q = torch.from_numpy(queries).to(dev)
+    ids_k, d_k = l2_topk(b, q, 100)
+    ids_p, d_p = bruteforce_topk(b, q, 100)
+    torch.cuda.synchronize()
+    err = check_topk(b, q, ids_k, d_k, ids_p, d_p)
+    p1 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
+    k1 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
+    k2 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
+    p2 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
+    log(f"  l2_topk at {N_SLICE}x128, {Q_SLICE} q, K=100: max |err| "
+        f"{err:.3e}; kernel {(k1 + k2) / 2:.3f} ms (turns {k1:.3f}, "
+        f"{k2:.3f}), plain {(p1 + p2) / 2:.3f} ms (turns {p1:.3f}, "
+        f"{p2:.3f})")
+    return counts, ref
 
 def phase_code_hamming(dev) -> dict:
     """The candidate-Hamming kernel against its plain twin, bit for bit, at
@@ -542,6 +593,297 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     return counts
 
+FIELDS = ("ids", "scores", "n_unique", "n_raw", "n_dec")
+CLI_ROWS, CLI_QUERIES = 100_000, 256
+# set from the first run (NVIDIA H100 80GB HBM3, 700 W): recall@10 0.9859
+CLI_RECALL_GATE = 0.98
+
+
+def phase_packed(dev, unpacked_ms: float) -> None:
+    """Phase 9: the packed scan state and the row update on CUDA against
+    the CPU, the unpacked scan and the native host scan, at phase 4's
+    inputs."""
+    from fspann_tpu_torch.ops import coding, native_scan
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    codes, qcodes, tomb, cb = scan_inputs()
+    n = len(codes)
+    qbits = torch.from_numpy(hs.unpack_bits_numpy(qcodes, cb)).to(dev)
+    tb = torch.from_numpy(tomb).to(dev)
+    host = hs.build_scan_state_packed(codes, cb, device="cpu")
+    packed = hs.build_scan_state_packed(codes, cb, device=dev)
+    require(packed.words.dtype == torch.int32
+            and packed.words.device.type == torch.device(dev).type,
+            "packed words")
+    require(torch.equal(host.words, packed.words.cpu()), "words CUDA != CPU")
+    require(torch.equal(host.popc, packed.popc.cpu()), "popc CUDA != CPU")
+    flat = hs.build_scan_state(codes, cb, device=dev)
+    kw = dict(anchor=100, margin=40)
+    chunked = dict(chunk=32_768, code_bits=cb, **kw)
+    for q in (64, 7, 1):
+        want = hs.scan(flat, qbits[:q], tb, 2000, **kw)
+        got = hs.scan_chunked(packed, qbits[:q], tb, 2000, **chunked)
+        for f in FIELDS:
+            require(torch.equal(getattr(got, f), getattr(want, f)),
+                    ("packed", q, f))
+    want = hs.scan(flat, qbits, tb, 2000, **kw)
+
+    # live rows written into zero padding in place == a fresh build
+    cut = n - 4096
+    st = hs.build_scan_state_packed(
+        np.concatenate([codes[:cut], np.zeros_like(codes[cut:])]), cb,
+        device=dev)
+    ptr, shape = st.words.data_ptr(), st.words.shape
+    words = hs.update_rows(st.words, coding.words_to_torch(codes[cut:], dev),
+                           cut)
+    popc = hs.update_rows(st.popc, host.popc[cut:].to(dev), cut)
+    require(words.data_ptr() == ptr and words.shape == shape,
+            "update_rows moved or reshaped the words")
+    got = hs.scan_chunked(hs.PackedScanState(words, popc), qbits, tb, 2000,
+                          **chunked)
+    for f in FIELDS:
+        require(torch.equal(getattr(got, f), getattr(want, f)),
+                ("update_rows", f))
+    del st, words, popc, got
+
+    # the native host kernel against the CUDA scan
+    t0 = time.perf_counter()
+    nat = native_scan.scan_topl(codes, qcodes, tomb, 2000, **kw)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    for f in FIELDS:
+        require(np.array_equal(getattr(nat, f), getattr(want, f).cpu()
+                               .numpy()), ("native", f))
+    ms_chunk = time_ms(lambda: hs.scan_chunked(packed, qbits, tb, 2000,
+                                               **chunked))
+    ms_route = time_ms(lambda: hs.scan_chunked(packed, qbits, tb, 2000,
+                                               code_bits=cb, **kw))
+    log(f"phase 9 packed scan 100k x 3072 bits: words int32 "
+        f"{tuple(packed.words.shape)} ({packed.words.numel() * 4 / 1e6:.1f}"
+        f" MB vs {flat.bits.numel() / 1e6:.1f} MB unpacked), CUDA == CPU; "
+        f"packed chunked == unpacked flat on every field, Q in (64, 7, 1); "
+        f"update_rows in place == fresh build; native host == CUDA at Q=64. "
+        f"Q=64: packed {ms_route:.3f} ms (default chunk: one whole unpack), "
+        f"{ms_chunk:.3f} ms (chunk 32768), unpacked flat {unpacked_ms:.3f} "
+        f"ms (phase 4), native host {native_ms:.1f} ms "
+        f"({native_scan._num_threads()} thread(s))")
+    del flat, packed
+    torch.cuda.empty_cache()
+
+
+def phase_lifecycle(dev, work, base, queries, ref) -> tuple[dict, dict]:
+    """Phase 10: phase 5's store restored into a packed, capacity-padded
+    system; serve, live insert in place and past capacity, delete, rotate,
+    flush, restore unpacked.  Returns the kernel counts and the restored
+    CUDA route of the first batch (for phase 11)."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.io import groundtruth, synthetic
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    db = os.path.join(work, "db")
+    cap = N_SLICE + 65_536
+    extra, _ = synthetic.lsh_hard_corpus(5 * 16_384, 128, 1, seed=43)
+    new_ids = N_SLICE + np.arange(len(extra), dtype=np.int64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+    sys_ = ForwardSecureANNSystem(
+        slice_cfg(scan_packed="on", scan_capacity_rows=cap), db, 128,
+        query_batch=64)
+    t0 = time.perf_counter()
+    restored = sys_.restore_index_from_disk()
+    t_restore = time.perf_counter() - t0
+    idx = sys_.index
+    st = idx._scan_state
+    require(restored == N_SLICE, f"restored {restored}")
+    require(isinstance(st, hs.PackedScanState), f"state {type(st)}")
+    require(st.words.device.type == torch.device(dev).type
+            and st.words.dtype == torch.int32 and st.words.shape[0] == cap,
+            (st.words.device, st.words.shape))
+    words_gb = st.words.numel() * 4 / 1e9
+    log(f"phase 10 lifecycle at {N_SLICE}: restore {t_restore:.2f} s into a "
+        f"packed state {tuple(st.words.shape)} int32 on {st.words.device}, "
+        f"{words_gb:.3f} GB of words (phase 5's bit matrix: "
+        f"{N_SLICE * 3072 / 1e9:.2f} GB)")
+
+    gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
+    sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
+    sys_.profiler.clear_rows()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rows = [r for r in sys_.profiler.rows if r.k == 10]
+    require_same(serve(sys_, queries), ref, "packed serving vs phase 5")
+    log(f"  served {Q_SLICE} q, every id and distance equal to phase 5's: "
+        f"q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  route "
+        f"{sum(r.route_ms for r in rows) / len(rows):.3f} ms per query  "
+        f"recall@10 {agg.recall_at_k[10]:.4f}  mean decrypted "
+        f"{agg.mean_cand_decrypted:.1f}  peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    ptr, shape = st.words.data_ptr(), tuple(st.words.shape)
+    ms = []
+    for i in range(4):
+        sl = slice(i * 16_384, (i + 1) * 16_384)
+        t0 = time.perf_counter()
+        sys_.insert_live(new_ids[sl], extra[sl])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        w = idx._scan_state.words
+        require(w.data_ptr() == ptr and tuple(w.shape) == shape,
+                f"insert {i} moved the words")
+    t0 = time.perf_counter()
+    sys_.insert_live(new_ids[4 * 16_384:], extra[4 * 16_384:])
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    require(idx._n_rows == N_SLICE + len(extra), idx._n_rows)
+    require(idx._scan_rows >= N_SLICE + len(extra) + 4096, idx._scan_rows)
+    log(f"  insert_live 4 x 16384 in place: "
+        f"{', '.join(f'{m:.1f}' for m in ms)} ms (words storage and shape "
+        f"kept); 16384 past capacity: {grow_ms:.1f} ms, state grew to "
+        f"{idx._scan_rows} rows")
+
+    pick = np.random.default_rng(5).choice(len(extra), 64, replace=False)
+    got = serve(sys_, extra[pick], k=10)[0]
+    require((got[:, 0] == new_ids[pick]).all(), "appended rows not first")
+    gone = new_ids[pick[:32]]
+    sys_.delete(gone)
+    got = serve(sys_, extra[pick])[0]
+    require(not np.isin(got, gone).any(), "deleted rows returned")
+    require((got[32:, 0] == new_ids[pick[32:]]).all(), "kept rows lost")
+
+    probe = queries[:64]
+    before = serve(sys_, probe)
+    # a restore pins the key version for query-only serving; this system
+    # takes writes, so it releases the pin before rotating
+    sys_.rotation.pinned_version = None
+    t0 = time.perf_counter()
+    rep = sys_.run_selective_reencryption()
+    t_rot = time.perf_counter() - t0
+    require(rep.get("new_version", 0) > rep.get("old_version", 0)
+            and rep.get("reencrypted", 0) > 0, f"no rotation: {rep}")
+    require_same(serve(sys_, probe), before, "after rotation")
+    t0 = time.perf_counter()
+    sys_.flush_all()
+    t_flush = time.perf_counter() - t0
+    sys_.shutdown()
+    del sys_, st, w, idx
+
+    back = ForwardSecureANNSystem(slice_cfg(scan_native="off"), db, 128,
+                                  query_batch=64)
+    back_n = back.restore_index_from_disk()
+    require(back_n == N_SLICE + len(extra) - len(gone), back_n)
+    require(isinstance(back.index._scan_state, hs.ScanState), "not unpacked")
+    require_same(serve(back, probe), before, "after flush and restore")
+    first = back.index.route_batch(*back.index.encode_queries(queries[:64]))
+    cuda_route = {f: getattr(first, f).cpu().numpy() for f in FIELDS}
+    back.shutdown()
+    counts = read_launches()
+    require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
+    log(f"  self search of 64 appended rows: own id first; 32 deleted, "
+        f"never returned; rotation v{rep['old_version']} -> "
+        f"v{rep['new_version']} re-encrypted {rep['reencrypted']} in "
+        f"{t_rot:.2f} s, 64 queries unchanged; flush_all {t_flush:.2f} s; "
+        f"unpacked restore of {back_n} live rows unchanged; kernel "
+        f"launches on this path {counts}")
+    torch.cuda.empty_cache()
+    return counts, cuda_route
+
+
+def phase_native(work, queries, cuda_route) -> None:
+    """Phase 11: the same store served by the native host scan; its first
+    batch's route equals the CUDA scan's."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.ops import native_scan
+
+    sys_ = ForwardSecureANNSystem(slice_cfg(scan_native="on"),
+                                  os.path.join(work, "db"), 128,
+                                  query_batch=64)
+    try:
+        n = sys_.restore_index_from_disk()
+        require(sys_.index._scan_state is None, "a device state was built")
+        qc, qk = sys_.index.encode_queries(queries[:64])
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = sys_.index.route_batch(qc, qk)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for f in FIELDS:
+            a = getattr(got, f)
+            require(isinstance(a, np.ndarray) and
+                    np.array_equal(a, cuda_route[f]), ("native", f))
+    finally:
+        sys_.shutdown()
+    log(f"phase 11 native host scan over {n} live rows "
+        f"({sys_.index._n_rows} scanned), Q=64: route == CUDA route on "
+        f"every field; {ms[0]:.1f}, {ms[1]:.1f} ms per batch at "
+        f"{native_scan._num_threads()} thread(s) on {os.cpu_count()} cores")
+
+
+def write_fvecs(path: str, x: np.ndarray) -> None:
+    n, d = x.shape
+    out = np.empty((n, d + 1), "<f4")
+    out[:, 0] = np.array(d, "<i4").view("<f4")
+    out[:, 1:] = x
+    out.tofile(path)
+
+
+def run_cli(argv) -> dict:
+    """``fspann_tpu_torch.api.cli.main`` in this process; its last line of
+    standard output (a JSON object) parsed."""
+    from fspann_tpu_torch.api import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    require(rc == 0, f"cli exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_cli(base, queries, work) -> dict:
+    """Phase 12: the command-line entry point, full run with --gt AUTO and
+    then --query-only against the ground truth saved as ivecs."""
+    from fspann_tpu_torch.io import groundtruth
+
+    d = os.path.join(work, "cli")
+    os.makedirs(d)
+    write_fvecs(os.path.join(d, "base.fvecs"), base[:CLI_ROWS])
+    write_fvecs(os.path.join(d, "q.fvecs"), queries[:CLI_QUERIES])
+    common = ["--queries", os.path.join(d, "q.fvecs"),
+              "--config", os.path.join(os.path.dirname(
+                  os.path.abspath(__file__)), "configs", "hard1m.json"),
+              "--profile", "HARD_SCAN", "--base-dir", os.path.join(d, "db"),
+              "--query-limit", str(CLI_QUERIES)]
+    reset_launches()                   # counts from here are the path's
+    t0 = time.perf_counter()
+    full = run_cli(common + ["--data", os.path.join(d, "base.fvecs"),
+                             "--gt", "AUTO",
+                             "--results", os.path.join(d, "res")])
+    t_full = time.perf_counter() - t0
+    counts = read_launches()
+    require(counts["l2_topk"] > 0, "--gt AUTO did not run l2_topk")
+    gt = os.path.join(d, "gt.ivecs")
+    groundtruth.precompute(base[:CLI_ROWS], queries[:CLI_QUERIES], k=100,
+                           backend="kernel").save_ivecs(gt)
+    reset_launches()                   # the query-only run's own counts
+    t0 = time.perf_counter()
+    again = run_cli(common + ["--query-only", "--gt", gt, "--no-reencrypt",
+                              "--results", os.path.join(d, "res2")])
+    t_again = time.perf_counter() - t0
+    counts = {k: v + read_launches()[k] for k, v in counts.items()}
+    for out in (full, again):
+        require(out["queries"] == CLI_QUERIES, out)
+        require(out["recall_at_10"] is not None
+                and out["recall_at_10"] >= CLI_RECALL_GATE, out)
+    require(again["recall_at_10"] == full["recall_at_10"],
+            f"query-only recall {again} != full run {full}")
+    log(f"phase 12 cli (HARD_SCAN, {CLI_ROWS} rows, {CLI_QUERIES} q): full "
+        f"run {t_full:.1f} s {json.dumps(full)}; --query-only "
+        f"{t_again:.1f} s {json.dumps(again)}; gate recall@10 >= "
+        f"{CLI_RECALL_GATE}; kernel launches on this path {counts}")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -564,24 +906,36 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {lib}: {line.strip()}")
 
-    rec = phase_topk(dev)
-    phase_scan(dev)
-    t0 = time.perf_counter()
-    base, queries = synthetic.lsh_hard_corpus(N_SLICE, 128, Q_SLICE, seed=42)
-    log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
-        f"{time.perf_counter() - t0:.1f} s")
-    scan_counts = phase_slice(dev, base, queries)
-    ch_rec = phase_code_hamming(dev)
-    phase_probe_equal(dev, base, queries)
-    probe_counts = phase_probe_slice(dev, base, queries,
-                                     profile="--profile" in sys.argv[1:])
+    work = tempfile.mkdtemp(prefix="fspann_smoke_")
+    try:
+        rec = phase_topk(dev)
+        unpacked_ms = phase_scan(dev)
+        t0 = time.perf_counter()
+        base, queries = synthetic.lsh_hard_corpus(N_SLICE, 128, Q_SLICE,
+                                                  seed=42)
+        log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
+            f"{time.perf_counter() - t0:.1f} s")
+        scan_counts, ref = phase_slice(dev, base, queries, work)
+        ch_rec = phase_code_hamming(dev)
+        phase_probe_equal(dev, base, queries)
+        probe_counts = phase_probe_slice(dev, base, queries,
+                                         profile="--profile" in sys.argv[1:])
+        phase_packed(dev, unpacked_ms)
+        life_counts, cuda_route = phase_lifecycle(dev, work, base, queries,
+                                                  ref)
+        phase_native(work, queries, cuda_route)
+        cli_counts = phase_cli(base, queries, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    l2_launches = sum(c["l2_topk"] for c in (scan_counts, probe_counts,
+                                             life_counts, cli_counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "l2_topk", "route": "cuda",
         "source": "fspann_tpu_torch/csrc/l2_topk.cu",
         "replaces": "fspann_tpu/ops/pallas_topk.py:106",
-        "launches": scan_counts["l2_topk"] + probe_counts["l2_topk"],
+        "launches": l2_launches,
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"]}, {
         "name": "code_hamming", "route": "cuda",

@@ -5,10 +5,12 @@ Two kinds of library, both plain C ABIs loaded with ctypes:
 * CUDA kernels: ``csrc/<name>.cu`` → ``build/lib<name>.so`` by ``nvcc`` for
   ``sm_90a`` (Hopper).  No PyTorch headers are included, so a build takes
   seconds.
-* The host AES-256-GCM kernel: the JAX package's C source
-  ``fspann_tpu/crypto/native/aes_gcm.c`` compiled with that directory's
-  Makefile flags into ``build/libfspann_crypto.so`` (the source is read, the
-  JAX package's directory is never written).
+* Host C kernels, compiled from the JAX package's C sources with their
+  directory's Makefile flags (the source is read, the JAX package's
+  directories are never written): AES-256-GCM
+  (``fspann_tpu/crypto/native/aes_gcm.c`` → ``build/libfspann_crypto.so``)
+  and the packed Hamming top-L scan
+  (``fspann_tpu/ops/native/hamming_topl.c`` → ``build/libfspann_scan.so``).
 
 ``build/`` is git-ignored; every fresh checkout builds here on first use.
 A lock file per library serialises concurrent builds of that library
@@ -36,6 +38,11 @@ AES_GCM_SRC = os.path.join(os.path.dirname(_PKG), "fspann_tpu", "crypto",
 # fspann_tpu/crypto/native/Makefile: CFLAGS, plus -shared
 AES_GCM_CFLAGS = ["-O3", "-Wall", "-Wextra", "-maes", "-mpclmul", "-mssse3",
                   "-msse4.1", "-mf16c", "-fPIC", "-pthread", "-shared"]
+NATIVE_SCAN_SRC = os.path.join(os.path.dirname(_PKG), "fspann_tpu", "ops",
+                               "native", "hamming_topl.c")
+# fspann_tpu/ops/native/Makefile: CFLAGS, plus -shared
+NATIVE_SCAN_CFLAGS = ["-O3", "-Wall", "-Wextra", "-mpopcnt", "-fPIC",
+                      "-pthread", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -84,6 +91,14 @@ def aes_gcm_library_path() -> str:
                   lambda out: [cc, *AES_GCM_CFLAGS, "-o", out, AES_GCM_SRC])
 
 
+def native_scan_library_path() -> str:
+    """Path of the host packed Hamming scan library, built on first use."""
+    cc = os.environ.get("CC", "gcc")
+    return _build("libfspann_scan.so", [NATIVE_SCAN_SRC],
+                  lambda out: [cc, *NATIVE_SCAN_CFLAGS, "-o", out,
+                               NATIVE_SCAN_SRC])
+
+
 def cuda_library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` built for sm_90a and loaded (cached per process)."""
     lib = _LIBS.get(name)
@@ -97,11 +112,12 @@ def cuda_library(name: str) -> ctypes.CDLL:
 
 def build_all() -> None:
     """Build every library at once: one ``nvcc`` per ``csrc/*.cu`` and gcc
-    for the AES library, all started together (a library that is up to
+    for each host library, all started together (a library that is up to
     date is only loaded)."""
     names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
-    with ThreadPoolExecutor(len(names) + 1) as ex:
+    with ThreadPoolExecutor(len(names) + 2) as ex:
         jobs = [ex.submit(cuda_library, n) for n in names]
         jobs.append(ex.submit(aes_gcm_library_path))
+        jobs.append(ex.submit(native_scan_library_path))
         for job in jobs:
             job.result()

@@ -14,13 +14,16 @@ the device) and, by mode, the device state stage A reads:
 
 * ``routing_mode="probe"``: the table, plus every point's packed codes
   when ``rerank_limit > 0`` (the full-code re-rank, ``ops/code_hamming``);
-* ``routing_mode="scan"``: the unpacked int8 bit matrix of the Hamming
-  scan (the table is built too, for the checkpoint).
+* ``routing_mode="scan"``: the Hamming scan state, unpacked (int8 bit
+  matrix) or packed (int32 words, ``runtime.scan_packed``), padded to
+  ``runtime.scan_capacity_rows``; or none at all when the native host
+  kernel serves stage A (``runtime.scan_native``) from the packed codes.
+  The table is built too, for the checkpoint.
 
+After finalize, ``append_rows`` (scan mode) inserts live: new rows fill the
+capacity padding in place, or grow the state past it; the table goes stale.
 ``save_table`` / ``load_table`` read and write the JAX package's
-``table.npz`` format.  Not ported yet (each raises ``NotImplementedError``
-where it would be chosen): the packed scan state, the native CPU scan and
-live insert (``append_rows``).
+``table.npz`` format.
 
 This module holds NO cipher state — routing–ciphertext orthogonality is a
 structural property here, not a convention: the class cannot see keys or
@@ -37,7 +40,7 @@ import torch
 
 from .. import default_device
 from ..config import SystemConfig
-from ..ops import coding, hamming_scan, partition, routing
+from ..ops import coding, hamming_scan, native_scan, partition, routing
 from ..ops.partition import PartitionTable
 
 
@@ -60,26 +63,12 @@ def _consume_concat(chunks: list[np.ndarray]) -> np.ndarray:
     return out
 
 
-def _check_ported(cfg: SystemConfig) -> None:
-    rt = cfg.runtime
-    if rt.routing_mode != "scan":
-        return
-    if rt.scan_native == "on":
-        # "auto"/"off" serve from the torch scan on every device
-        raise NotImplementedError("scan_native='on': the native CPU scan is "
-                                  "not ported yet")
-    if rt.scan_packed == "on":
-        raise NotImplementedError("scan_packed='on': the packed scan state "
-                                  "is not ported yet")
-
-
 class PartitionedIndex:
     SAMPLE_THRESHOLD = 1000   # reference PartitionedIndexService.java:50-51
 
     def __init__(self, cfg: SystemConfig, dim: int,
                  bank_path: str | None = None,
                  table_path: str | None = None, device=None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.dim = dim
         self.bank_path = bank_path
@@ -97,11 +86,14 @@ class PartitionedIndex:
         # int32 [N, G, W] code bit patterns on self.device, only when
         # runtime.rerank_limit > 0 in probe mode (G*W words per point)
         self.point_codes: torch.Tensor | None = None
-        # unpacked int8 bit matrix + popcounts (routing_mode == "scan") and
-        # the packed codes it came from (persisted by save_table)
-        self._scan_state: hamming_scan.ScanState | None = None
+        # scan state (routing_mode == "scan"; None when the native host
+        # kernel serves) and the packed codes it came from (persisted by
+        # save_table, extended by append_rows)
+        self._scan_state: hamming_scan.ScanState | \
+            hamming_scan.PackedScanState | None = None
         self._scan_codes: np.ndarray | None = None
-        # live insert is not ported: the frozen table always covers all rows
+        # set by append_rows: the frozen partition table no longer covers
+        # all rows; the probe path refuses to route until re-finalized
         self._table_stale = False
         self._scan_budget_cache: int | None = None
         # staging
@@ -248,7 +240,6 @@ class PartitionedIndex:
         Idempotent once frozen."""
         if self.frozen:
             return
-        _check_ported(self.cfg)
         if self._pending_vecs:   # corpus smaller than the sample threshold
             sample = np.concatenate(self._pending_vecs)
             if self.bank is None:
@@ -287,9 +278,14 @@ class PartitionedIndex:
                 time.perf_counter() - t0
         if rt.routing_mode == "scan":
             self._scan_codes = codes               # persisted by save_table
+            # when the native host kernel serves stage A, a device scan
+            # state would be dead weight: the kernel reads the packed codes
             t0 = time.perf_counter()
-            self._scan_state = self._make_scan_state(codes)
-            self._sync()
+            if self._native_preferred():
+                self._scan_state = None
+            else:
+                self._scan_state = self._make_scan_state(codes)
+                self._sync()
             self.finalize_sec["scan_upload"] = time.perf_counter() - t0
         wide = self._wide_keys()
         t0 = time.perf_counter()
@@ -326,8 +322,76 @@ class PartitionedIndex:
             self.save_table(self.table_path)
             self.finalize_sec["save_table"] = time.perf_counter() - t0
 
+    # -- live ingestion (scan mode) ---------------------------------------------------
+
     def append_rows(self, ids: np.ndarray, vecs: np.ndarray) -> None:
-        raise NotImplementedError("live insert is not ported yet")
+        """Insert AFTER finalize — scan mode only (beyond the reference,
+        whose index freezes at finalizeForSearch:842).  New code rows go
+        into the scan state and are searchable immediately; no partition
+        rebuild.  The frozen partition table goes stale, so the probe path
+        refuses to route until the next full finalize/restore
+        (``_table_stale``)."""
+        if not self.frozen:
+            raise RuntimeError("append_rows is for post-finalize inserts; "
+                               "use stage() before finalize")
+        rt = self.cfg.runtime
+        if rt.routing_mode != "scan" \
+                or (self._scan_state is None and self._scan_codes is None):
+            raise RuntimeError("live insert requires routing_mode='scan'")
+        ids = np.asarray(ids, np.int64)
+        vecs = np.asarray(vecs, np.float32)
+        if vecs.ndim != 2 or vecs.shape[1] != self.dim:
+            raise ValueError(f"expected [*, {self.dim}] vectors")
+        if len(ids) != len(vecs) or (ids < 0).any():
+            raise ValueError("bad ids")
+        if np.isin(ids, self._row_ids).any():
+            raise ValueError("append_rows ids collide with existing rows")
+        if not np.isfinite(vecs).all():
+            raise ValueError("vectors contain NaN/Inf")
+
+        codes, _ = self._encode(vecs)
+        st = self._scan_state
+        if st is not None:
+            packed = isinstance(st, hamming_scan.PackedScanState)
+            new_bits = hamming_scan.unpack_bits_numpy(
+                codes, self.cfg.paper.code_bits)
+            new_popc = torch.from_numpy(
+                new_bits.sum(axis=1, dtype=np.int32)).to(self.device)
+            body = coding.words_to_torch(codes, self.device) if packed \
+                else torch.from_numpy(new_bits).to(self.device)
+            rows = st.words if packed else st.bits
+            lo = self._n_rows
+            if lo + len(ids) > self._scan_rows:
+                # out of capacity padding: grow on the device — old rows,
+                # the new rows, then fresh zero padding with geometric
+                # headroom (amortised O(1) over an insert stream; only the
+                # new rows cross the host link).  Exact-fit builds
+                # (scan_capacity_rows == 0) grow exactly.
+                grow = 0 if rt.scan_capacity_rows == 0 \
+                    else max(self._scan_rows // 8, 4096)
+                rows = torch.cat([rows[:lo], body,
+                                  body.new_zeros((grow,) + body.shape[1:])])
+                popc = torch.cat([st.popc[:lo], new_popc,
+                                  new_popc.new_zeros(grow)])
+                self._scan_rows = lo + len(ids) + grow
+                self._tombstones_scan_dev = None
+                self._scan_budget_cache = None   # free memory changed
+            else:
+                # in-place fill of the tombstoned capacity padding: the
+                # state keeps its storage and shape
+                rows = hamming_scan.update_rows(rows, body, lo)
+                popc = hamming_scan.update_rows(st.popc, new_popc, lo)
+            self._scan_state = type(st)(rows, popc)
+        # native-only serving: the packed codes ARE the scan state
+        self._scan_codes = np.concatenate([self._scan_codes, codes])
+        self._row_ids = np.concatenate([self._row_ids, ids])
+        self._dense = bool(self._dense and len(ids)
+                           and ids[0] == self._n_rows
+                           and np.array_equal(
+                               ids, np.arange(ids[0], ids[0] + len(ids))))
+        self._n_rows += len(ids)
+        self._table_stale = True
+        self._tombstones_dirty = True
 
     # -- deletion ---------------------------------------------------------------------
 
@@ -337,7 +401,7 @@ class PartitionedIndex:
         self._tombstones_dirty = True
 
     def _tombstones_host(self) -> np.ndarray:
-        """bool [N] dead mask, host-resident."""
+        """bool [N] dead mask, host-resident (native scan path)."""
         if self._tombstones_dirty or self._tombstones_np is None:
             t = np.zeros(self._n_rows, bool)
             if self._deleted:
@@ -395,28 +459,50 @@ class PartitionedIndex:
                 "query before finalizeForSearch "
                 "(reference PartitionedIndexService.java:461)")
         rt = self.cfg.runtime
-        _check_ported(self.cfg)
         probes = probes or rt.effective_probes()
         limit = refinement_limit or rt.refinement_limit
-        if rt.routing_mode == "scan" and self._scan_state is not None:
+        if rt.routing_mode == "scan" and (self._scan_state is not None
+                                          or self._scan_codes is not None):
             # global fine ranking, probes are moot — the caller's
             # refinement_limit IS honored (it is the decrypt budget L; the
-            # adaptive-retry pass widens it).  When the [Q, N] rank scratch
-            # outgrows the device budget, switch to the chunked
-            # running-top-L variant.
+            # adaptive-retry pass widens it).
             scan_l = min(refinement_limit or rt.effective_refinement(),
                          self._n_rows)
+            adaptive = dict(anchor=rt.adaptive_decrypt_anchor,
+                            margin=rt.adaptive_decrypt_margin,
+                            floor=rt.adaptive_decrypt_floor)
+            if self._use_native_scan():
+                # the native host kernel streams the packed words once;
+                # bit-identical to the device scan, as numpy arrays
+                res = native_scan.scan_topl(
+                    self._scan_codes, self._host_words(qcodes),
+                    self._tombstones_host() if self._deleted else None,
+                    scan_l, **adaptive)
+                return self._map_external(res)
+            if self._scan_state is None:
+                raise RuntimeError(
+                    "index was finalized for native-only scan serving "
+                    "(scan_native) but the native backend is now "
+                    "unavailable — rebuild or restore with scan_native"
+                    "='off'")
             qbits = torch.from_numpy(hamming_scan.unpack_bits_numpy(
                 self._host_words(qcodes), self.cfg.paper.code_bits)
             ).to(self.device)
-            flat_bytes = qbits.shape[0] * self._scan_rows * 12
-            scan_fn = hamming_scan.scan \
-                if flat_bytes <= self._scan_flat_budget() \
-                else hamming_scan.scan_chunked
-            res = scan_fn(self._scan_state, qbits, self._tombstones_scan(),
-                          scan_l, anchor=rt.adaptive_decrypt_anchor,
-                          margin=rt.adaptive_decrypt_margin,
-                          floor=rt.adaptive_decrypt_floor)
+            if isinstance(self._scan_state, hamming_scan.PackedScanState):
+                # the packed state always goes through the chunked scan
+                # (the per-chunk device unpack is the point of packing)
+                res = hamming_scan.scan_chunked(
+                    self._scan_state, qbits, self._tombstones_scan(), scan_l,
+                    code_bits=self.cfg.paper.code_bits, **adaptive)
+            else:
+                # when the [Q, N] rank scratch outgrows the device budget,
+                # switch to the chunked running-top-L variant
+                flat_bytes = qbits.shape[0] * self._scan_rows * 12
+                scan_fn = hamming_scan.scan \
+                    if flat_bytes <= self._scan_flat_budget() \
+                    else hamming_scan.scan_chunked
+                res = scan_fn(self._scan_state, qbits,
+                              self._tombstones_scan(), scan_l, **adaptive)
         elif self._table_stale:
             raise RuntimeError(
                 "partition table stale after live inserts — probe routing "
@@ -451,20 +537,52 @@ class PartitionedIndex:
         otherwise the result moves to the host as numpy)."""
         if self._dense:
             return res
-        rid = res.ids.cpu().numpy()
-        mapped = np.where(rid >= 0, self._row_ids[np.maximum(rid, 0)], -1)
-        return routing.RouteResult(mapped, res.scores.cpu().numpy(),
-                                   res.n_unique.cpu().numpy(),
-                                   res.n_raw.cpu().numpy(),
-                                   None if res.n_dec is None
-                                   else res.n_dec.cpu().numpy())
+        ids, scores, n_unique, n_raw, n_dec = (
+            None if a is None else
+            a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in res)
+        mapped = np.where(ids >= 0, self._row_ids[np.maximum(ids, 0)], -1)
+        return routing.RouteResult(mapped, scores, n_unique, n_raw, n_dec)
 
-    def _make_scan_state(self, codes: np.ndarray) -> hamming_scan.ScanState:
-        """Build the unpacked scan state on ``self.device``.
+    def _native_preferred(self) -> bool:
+        """Decide (at build/restore time) whether the native host kernel
+        will serve stage A: "on" demands it (raises if the library cannot
+        build), "auto" picks it exactly when the scan device is the CPU,
+        where the torch scan streams the 8×-unpacked bit matrix.  When
+        preferred, no device scan state is built — the packed codes serve
+        directly."""
+        mode = self.cfg.runtime.scan_native
+        if mode == "off":
+            return False
+        if mode == "on":
+            if not native_scan.available():
+                raise RuntimeError("scan_native='on' but the native scan "
+                                   "library failed to build")
+            return True
+        return self.device.type == "cpu" and native_scan.available()
+
+    def _use_native_scan(self) -> bool:
+        """Serve this route through the native kernel?  True exactly when
+        the build/restore decided native-only serving (no device scan
+        state was built) or scan_native='on'."""
+        if self.cfg.runtime.scan_native == "off" or self._scan_codes is None:
+            if self.cfg.runtime.scan_native == "on" and self.frozen:
+                raise RuntimeError("scan_native='on' needs the packed codes "
+                                   "(scan mode keeps them; probe mode with "
+                                   "rerank_limit=0 does not)")
+            return False
+        return self._scan_state is None or self._native_preferred()
+
+    def _make_scan_state(self, codes: np.ndarray):
+        """Build the scan state on ``self.device`` in the configured
+        layout.  "auto" packs only when the unpacked int8 bit matrix would
+        not fit the device budget — packed costs more scan traffic but 8×
+        fewer resident bytes (ops/hamming_scan.PackedScanState).
 
         When ``runtime.scan_capacity_rows`` exceeds the row count the
         state is padded with zero rows up to capacity; padding rows are
-        tombstoned (``_tombstones_scan``) so the scan never ranks them."""
+        tombstoned (``_tombstones_scan``) so the scan never ranks them, and
+        post-finalize ``append_rows`` fills them in place."""
         cb = self.cfg.paper.code_bits
         n = int(codes.shape[0])
         cap = max(n, self.cfg.runtime.scan_capacity_rows)
@@ -473,11 +591,13 @@ class PartitionedIndex:
                 [codes, np.zeros((cap - n,) + codes.shape[1:], codes.dtype)])
         self._scan_rows = cap
         self._tombstones_scan_dev = None
-        if self.cfg.runtime.scan_packed == "auto" and \
-                cap * self.cfg.paper.num_groups * cb > self._scan_pack_budget():
-            raise NotImplementedError(
-                "the unpacked scan state does not fit the device budget and "
-                "the packed scan state is not ported yet")
+        mode = self.cfg.runtime.scan_packed
+        if mode == "auto":
+            bits_bytes = cap * self.cfg.paper.num_groups * cb
+            mode = "on" if bits_bytes > self._scan_pack_budget() else "off"
+        if mode == "on":
+            return hamming_scan.build_scan_state_packed(codes, cb,
+                                                        device=self.device)
         return hamming_scan.build_scan_state(codes, cb, device=self.device)
 
     def _scan_pack_budget(self) -> int:
@@ -589,7 +709,8 @@ class PartitionedIndex:
                 self._codes_host = codes
             if rt.routing_mode == "scan":
                 self._scan_codes = codes
-                self._scan_state = self._make_scan_state(codes)
+                self._scan_state = None if self._native_preferred() \
+                    else self._make_scan_state(codes)
         saved_wide = "min_key2" in z.files
         if saved_wide != self._wide_keys():
             return False   # key-width mismatch: decrypt-and-rebuild

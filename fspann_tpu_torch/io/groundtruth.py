@@ -73,11 +73,11 @@ def precompute(base: np.ndarray, queries: np.ndarray, k: int = 100,
     device = torch.device(device) if device is not None else default_device()
     if backend is None:
         backend = "kernel" if device.type == "cuda" else "torch"
-    q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
+    # torch.tensor copies, so read-only inputs (mapped vecs files) are fine
+    q = torch.tensor(np.asarray(queries, np.float32), device=device)
     if backend == "kernel":
         ids, _dist = l2_topk(
-            torch.as_tensor(np.asarray(base, np.float32), device=device),
-            q, k)
+            torch.tensor(np.asarray(base, np.float32), device=device), q, k)
     elif backend == "torch":
         ids, _dist = bruteforce_topk(base, q, k, chunk)
     else:

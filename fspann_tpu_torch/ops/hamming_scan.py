@@ -6,7 +6,9 @@ so ranking by Hamming is ranking by ``popc[c] - 2 * dot`` — one
 ``[Q, B] x [B, N]`` int8→int32 product (B = G·m·λ total code bits) plus a
 top-L.  This replaces the reference's whole stage-A machinery (probe queue
 over partitions, PartitionedIndexService.java:592-715) with an exact global
-fine ranking.  Device memory: N·B int8 bytes (3.07 GB at 1M × 3,072 bits).
+fine ranking.  Device memory: N·B int8 bytes (3.07 GB at 1M × 3,072 bits),
+or, with the packed state (:class:`PackedScanState`), 4 bytes per 32 code
+bits (0.38 GB at the same size).
 
 The product is ``torch._int_mm`` (exact int8 → int32).  Its CUDA path wants
 more than 16 rows in the first operand and widths that are multiples of 8,
@@ -29,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .coding import words_to_torch
 from .routing import _INF, RouteResult
 
 # dead-entry sentinel for the rank key: far above any real rank value
@@ -43,6 +46,19 @@ _POPC8 = _BITS8.sum(dim=1, dtype=torch.int32)
 
 class ScanState(NamedTuple):
     bits: torch.Tensor   # int8 [N, B] unpacked 0/1 code bits (MSB-first order)
+    popc: torch.Tensor   # int32 [N] popcount per point
+
+
+class PackedScanState(NamedTuple):
+    """Scan state kept PACKED on the device: 8× fewer resident bytes than
+    the int8 bit matrix, so a card holds 8× more rows.  :func:`scan_chunked`
+    unpacks one chunk at a time right before its bit product; the unpack
+    scratch is one chunk's worth, released between steps.  The cost is
+    more device traffic per scan than the unpacked state (the words are
+    read, unpacked and the bit block read again), so the unpacked state
+    stays the default whenever it fits."""
+
+    words: torch.Tensor  # int32 [N, G, W] bit patterns of the uint32 words
     popc: torch.Tensor   # int32 [N] popcount per point
 
 
@@ -61,18 +77,21 @@ def unpack_bits_numpy(codes: np.ndarray, code_bits: int) -> np.ndarray:
 
 
 def _word_bytes(words: torch.Tensor) -> torch.Tensor:
-    """int64 word bit patterns [..., W] → big-endian byte values
-    [..., W*4] (int64 in [0, 256)).  Words ride as int64 because ``>>`` on
-    ``torch.uint32`` is not implemented on every device."""
+    """int32 or int64 word bit patterns [..., W] → big-endian byte values
+    [..., W*4] (int64 in [0, 256)).  Words are widened to int64 because
+    ``>>`` on ``torch.uint32`` is not implemented on every device; the
+    arithmetic shift of a sign-extended int32 word keeps its low 32 bits,
+    and the mask drops the rest."""
     shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int64,
                           device=words.device)
-    by = (words[..., None] >> shifts) & 0xFF
+    by = words.to(torch.int64)[..., None] >> shifts
+    by &= 0xFF
     return by.reshape(*words.shape[:-1], words.shape[-1] * 4)
 
 
 def unpack_bits_device(words: torch.Tensor, code_bits: int) -> torch.Tensor:
-    """Device-side unpack: int64 word bit patterns [..., G, W] → int8
-    [..., G*code_bits], the MSB-first convention of
+    """Device-side unpack: int32 or int64 word bit patterns [..., G, W] →
+    int8 [..., G*code_bits], the MSB-first convention of
     :func:`unpack_bits_numpy` (a byte → 8-bit lookup table)."""
     g = words.shape[-2]
     bits = _BITS8.to(words.device)[_word_bytes(words)]      # [..., G, W*4, 8]
@@ -80,11 +99,18 @@ def unpack_bits_device(words: torch.Tensor, code_bits: int) -> torch.Tensor:
     return bits.reshape(*words.shape[:-2], g * code_bits)
 
 
-def _words_to_device(codes: np.ndarray, device) -> torch.Tensor:
-    """uint32 [n, G, W] numpy words → int64 bit patterns on ``device``."""
-    w32 = torch.from_numpy(np.ascontiguousarray(codes, np.uint32)
-                           .view(np.int32))
-    return w32.to(device).to(torch.int64) & 0xFFFFFFFF
+def _popcounts(words: torch.Tensor, chunk: int) -> torch.Tensor:
+    """int32 [N] popcounts of word bit patterns [N, ...], by a byte lookup
+    table over ``chunk`` rows at a time (pad bits are zero by the packers'
+    construction, ops/coding.py, so they equal the bit-matrix row sums)."""
+    n = words.shape[0]
+    popc = torch.empty(n, dtype=torch.int32, device=words.device)
+    popc8 = _POPC8.to(words.device)
+    for lo in range(0, n, chunk):
+        w = words[lo:lo + chunk]
+        popc[lo:lo + len(w)] = popc8[_word_bytes(w)].reshape(
+            len(w), -1).sum(dim=1, dtype=torch.int32)
+    return popc
 
 
 def build_scan_state(codes: np.ndarray, code_bits: int,
@@ -100,13 +126,33 @@ def build_scan_state(codes: np.ndarray, code_bits: int,
     n, g, _w = codes.shape
     bits = torch.empty((n, g * code_bits), dtype=torch.int8, device=device)
     popc = torch.empty(n, dtype=torch.int32, device=device)
-    popc8 = _POPC8.to(device)
     for lo in range(0, n, chunk):
-        words = _words_to_device(codes[lo:lo + chunk], device)
+        words = words_to_torch(codes[lo:lo + chunk], device)
         bits[lo:lo + len(words)] = unpack_bits_device(words, code_bits)
-        popc[lo:lo + len(words)] = popc8[_word_bytes(words)].reshape(
-            len(words), -1).sum(dim=1, dtype=torch.int32)
+        popc[lo:lo + len(words)] = _popcounts(words, chunk)
     return ScanState(bits, popc)
+
+
+def build_scan_state_packed(codes: np.ndarray, code_bits: int,
+                            device=None,
+                            chunk: int = 65_536) -> PackedScanState:
+    """Upload the packed words as int32 bit patterns (4 bytes per 32 code
+    bits; the int64 widening happens one chunk at a time inside the scan)
+    and take their popcounts on the device in ``chunk``-row steps.
+    ``code_bits`` is the JAX signature's; the words carry their width."""
+    del code_bits
+    words = words_to_torch(codes, device if device is not None else "cpu")
+    return PackedScanState(words, _popcounts(words, chunk))
+
+
+def update_rows(buf: torch.Tensor, new: torch.Tensor, lo: int
+                ) -> torch.Tensor:
+    """In-place row fill of a capacity-padded scan state: ``buf[lo:lo +
+    len(new)] = new``.  The tensor keeps its storage and shape (the JAX
+    version donates the buffer to the same end), so a stream of live
+    inserts never copies the resident state.  Returns ``buf``."""
+    buf[lo:lo + len(new)].copy_(new)
+    return buf
 
 
 def _bit_dots(qbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -225,29 +271,41 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
     return msc.gather(1, sel), mid.gather(1, sel)
 
 
-def scan_chunked(state: ScanState, qbits: torch.Tensor,
+def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
                  tombstones: torch.Tensor, limit: int, chunk: int = 1 << 19,
-                 anchor: int = 0, margin: int = 0,
-                 floor: int = 0) -> RouteResult:
+                 anchor: int = 0, margin: int = 0, floor: int = 0,
+                 code_bits: int = 0) -> RouteResult:
     """:func:`scan` with the corpus processed in ``chunk``-row blocks and a
     running top-L merge — the [Q, N] rank intermediate becomes [Q, chunk],
     so memory stays flat as N grows.
+
+    With a :class:`PackedScanState` (pass ``code_bits``) each chunk's words
+    are unpacked on the device right before the bit product; the packed
+    words are what stays resident.
 
     The tail block starts at ``n - chunk`` and re-reads already-scanned
     rows; those duplicates are masked DEAD so every id appears at most
     once.  The merge orders by (score, id), matching :func:`scan`.
     """
-    n = state.bits.shape[0]
+    packed = isinstance(state, PackedScanState)
+    if packed and code_bits <= 0:
+        raise ValueError("PackedScanState requires code_bits")
+    n = state.popc.shape[0]
     if n <= chunk:
-        return scan(state, qbits, tombstones, limit, anchor, margin, floor)
+        st = ScanState(unpack_bits_device(state.words, code_bits),
+                       state.popc) if packed else state
+        return scan(st, qbits, tombstones, limit, anchor, margin, floor)
     q = qbits.shape[0]
     k = min(limit, chunk, n)
-    dev = state.bits.device
+    dev = state.popc.device
     carry = (torch.full((q, k), _DEAD, dtype=torch.int32, device=dev),
              torch.full((q, k), -1, dtype=torch.int32, device=dev))
     for start in range(0, n, chunk):
         start_c = min(start, n - chunk)
         sl = slice(start_c, start_c + chunk)
-        carry = scan_chunk_merge(qbits, state.bits[sl], state.popc[sl],
+        bits_c = unpack_bits_device(state.words[sl], code_bits) if packed \
+            else state.bits[sl]
+        carry = scan_chunk_merge(qbits, bits_c, state.popc[sl],
                                  tombstones[sl], start, start_c, carry)
+        del bits_c            # the unpack scratch goes before the next step
     return _finish(*carry, qbits, n, anchor, margin, floor, k)

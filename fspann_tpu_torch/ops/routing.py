@@ -48,7 +48,8 @@ _SIGN64 = -2 ** 63
 
 class RouteResult(NamedTuple):
     """Fields are torch tensors on the routing device, or numpy arrays once
-    mapped to external ids on the host (``PartitionedIndex._map_external``)."""
+    mapped to external ids on the host (``PartitionedIndex._map_external``)
+    or when the native host scan served the route (``ops/native_scan``)."""
 
     ids: torch.Tensor       # int32 [Q, R] candidate ids ranked by score, -1 = pad
     scores: torch.Tensor    # int32 [Q, R] Hamming score per id, _INF = pad

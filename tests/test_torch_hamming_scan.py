@@ -184,6 +184,7 @@ def _index_cfg(capacity, margin=0):
         runtime=RuntimeConfig(refinement_limit=400, max_global_candidates=400,
                               routing_mode="scan", encode_backend="cpu",
                               rerank_limit=100, scan_packed="off",
+                              scan_native="off",
                               scan_capacity_rows=capacity,
                               adaptive_decrypt_margin=margin),
         eval=EvalConfig(k_variants=(1, 10))).validate()

@@ -5,9 +5,9 @@ drift from the JAX package's sources.
 imports jax, so the port carries its own copies of the jax-free host
 modules instead of importing them.  Each copy's code must equal its
 source's, compared as syntax trees without import statements and
-docstrings (the one sanctioned code edit: ``crypto/aesgcm.py`` builds the
-C library into the port's build directory instead of running ``make``
-inside ``fspann_tpu``)."""
+docstrings (the one sanctioned code edit: ``crypto/aesgcm.py`` and
+``ops/native_scan.py`` build their C library into the port's build
+directory instead of running ``make`` inside ``fspann_tpu``)."""
 
 import ast
 import os
@@ -28,11 +28,16 @@ CARRIED = ["config.py", "types.py", "crypto/aesgcm.py", "crypto/keys.py",
            "store/write_buffer.py", "io/loaders.py", "io/synthetic.py",
            "query/aggregates.py", "query/diagnostics.py", "query/token.py",
            "utils/cache.py", "utils/metrics.py", "utils/profiler.py",
-           "utils/storage_metrics.py", "api/system.py"]
+           "utils/storage_metrics.py", "api/system.py", "api/cli.py",
+           "api/multidim.py", "query/decoy.py", "crypto/keyutils.py",
+           "utils/paths.py", "interfaces.py", "ops/native_scan.py"]
 
-# crypto/aesgcm.py: the library path constants and the build step of
-# ``_load`` differ; everything from ``lib = ctypes.CDLL(...)`` on must not
-AESGCM_BUILD = {"_NATIVE_DIR", "_LIB_PATH", "_load"}
+# Modules that bind a C library: the library path constants and the build
+# step of ``_load`` differ; everything from ``lib = ctypes.CDLL(...)`` on
+# must not, and the port's ``_load`` takes its path from ``_build``
+NATIVE_BUILD = {"_NATIVE_DIR", "_LIB_PATH", "_load"}
+NATIVE_LIBS = {"crypto/aesgcm.py": "aes_gcm_library_path()",
+               "ops/native_scan.py": "native_scan_library_path()"}
 
 
 def _tree(path):
@@ -76,12 +81,12 @@ def _bindings(tree):
 def test_carried_module_matches_source(rel):
     src, port = (_tree(os.path.join(JAX_PKG, rel)),
                  _tree(os.path.join(PORT, rel)))
-    if rel == "crypto/aesgcm.py":
-        assert _code(port, AESGCM_BUILD) == _code(src, AESGCM_BUILD)
+    if rel in NATIVE_LIBS:
+        assert _code(port, NATIVE_BUILD) == _code(src, NATIVE_BUILD)
         assert _bindings(port) == _bindings(src)
         with open(os.path.join(PORT, rel)) as f:
             text = f.read()
-        assert "aes_gcm_library_path()" in text and "subprocess" not in text
+        assert NATIVE_LIBS[rel] in text and "subprocess" not in text
     else:
         assert _code(port) == _code(src)
 

@@ -160,22 +160,50 @@ def test_jax_scan_table_npz_restores_in_port(pair):
 
 @pytest.mark.parametrize("mode", ["scan_packed", "scan_native",
                                   "append_rows"])
-def test_unported_modes_raise(tmp_path, mode):
-    """What the port does not serve yet raises where it would be chosen."""
+def test_formerly_unported_modes_serve(pair, mode):
+    """The packed scan state, the native host scan and live insert serve,
+    and route like the JAX index built with the same mode."""
     import dataclasses
 
+    from fspann_tpu.index.service import PartitionedIndex as JIndex
     from fspann_tpu_torch.index.service import PartitionedIndex
 
-    cfg = _cfg(tconfig)
-    if mode == "append_rows":
-        with pytest.raises(NotImplementedError):
-            PartitionedIndex(cfg, D).append_rows(
-                np.arange(2), np.zeros((2, D), np.float32))
-        return
-    bad = dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, **{mode: "on"}))
-    with pytest.raises(NotImplementedError):
-        ForwardSecureANNSystem(bad, str(tmp_path / "x"), D)
+    js, ts, base, queries, _ = pair
+    on = {"scan_packed": {"scan_packed": "on"},
+          "scan_native": {"scan_native": "on"},
+          "append_rows": {}}[mode]
+    idx = []
+    for c, cls, kw in ((jconfig, JIndex, {}),
+                       (tconfig, PartitionedIndex, {"device": "cpu"})):
+        cfg = _cfg(c)
+        cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, **on))
+        ix = cls(cfg, D, **kw)
+        if cls is PartitionedIndex:
+            ix.set_bank(ts.index.bank)
+        else:
+            ix.bank = js.index.bank
+        ix.stage(np.arange(N - 200), base[:N - 200])
+        ix.finalize()
+        if mode == "append_rows":
+            ix.append_rows(np.arange(N - 200, N), base[N - 200:])
+        ix.mark_deleted([5, N - 3])
+        idx.append(ix)
+    jidx, tidx = idx
+    if mode == "scan_packed":
+        from fspann_tpu_torch.ops.hamming_scan import PackedScanState
+        assert isinstance(tidx._scan_state, PackedScanState)
+        assert tidx._scan_state.words.dtype == torch.int32
+    if mode == "scan_native":
+        assert tidx._scan_state is None and jidx._scan_state is None
+    jq = jidx.encode_queries(queries[:BATCH])
+    jr = jidx.route_batch(*jq)
+    tr = tidx.route_batch(*tidx.encode_queries(queries[:BATCH]))
+    for f in ("ids", "scores", "n_unique", "n_raw", "n_dec"):
+        got = getattr(tr, f)
+        got = got.numpy() if isinstance(got, torch.Tensor) else got
+        np.testing.assert_array_equal(got, np.asarray(getattr(jr, f)),
+                                      err_msg=f)
 
 
 def test_jax_bank_file_is_refused(pair):
