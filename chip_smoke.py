@@ -7,17 +7,24 @@ Phases (any failure raises and exits non-zero):
   2. build the kernels from the checkout's sources, all at once (one nvcc
      for sm_90a per CUDA source, gcc for the host AES-GCM and packed
      Hamming scan libraries);
-  3. the L2 top-k kernel against its plain torch twin at d=128, K=100,
-     262,144 base rows x 256 queries;
+  3. the L2 top-k kernel against its plain torch twin at K=100, 262,144
+     base rows x 256 queries, d=128 and d=960 (the 960-d point's width),
+     and against float64 (``ops/l2_topk.float64_error`` at most
+     ``F32_ERROR_LIMIT``: float32-accurate, which one TF32 pass is not),
+     timed in turns with the plain twin and the library call (addmm + topk,
+     ``library_topk``) beside its bound and its split-TF32 floor; pass 1's
+     resident blocks per SM;
   4. the Hamming scan on CUDA against the same scan on the CPU: 100k rows
      of 3,072-bit codes, 64-query batch, L=2,000, margin 40 — bit-identical;
   5. the encrypted scan-query slice at bench.py's operating point (1M x 128
      LSH-hard corpus, m=64 → 3,072-bit codes, L=2,000, margin 40, f16
      payloads, host encode, batch 64) through ForwardSecureANNSystem, with
      ground truth from the kernel; recall@10 >= 0.98 and ratio@100 <= 1.01;
+     then the kernel against its plain twin, float64 and the library call
+     at the ground-truth shape (1M x 128, 1,024 queries);
   6. the candidate-Hamming kernel against its plain torch twin, bit for
      bit: 1M rows x 96 words, 64 queries x 49,152 candidates with pads, and
-     the same at 192 words;
+     the same at 192 words, beside the bound of the distinct rows read once;
   7. the probe route on CUDA against the same route on the CPU at 100k rows
      (G = 24, W = 4, block 128, 1% tombstones, Q in {64, 7, 1}, narrow and
      wide keys): partition build, route and route_rerank equal on every
@@ -27,7 +34,9 @@ Phases (any failure raises and exits non-zero):
      payloads, device encode, device refine, batch 64) through
      ForwardSecureANNSystem: table, codes and refine on the card, both
      kernels launched, the first batch's CUDA route equal to the CPU route
-     on copies of the same state; recall@10 >= 0.65 and ratio@100 <= 1.03.
+     on copies of the same state, and ``code_hamming``'s bound on the ids
+     that batch hands it (distinct rows read once); recall@10 >= 0.65 and
+     ratio@100 <= 1.03.
      ``--profile`` adds a torch.profiler pass over the served queries;
   9. the packed scan state at phase 4's inputs: built on CUDA == built on
      the CPU, the packed chunked scan == the unpacked flat scan on every
@@ -69,6 +78,9 @@ import numpy as np
 import torch
 
 TOL_RTOL, TOL_ATOL = 2e-4, 1e-4     # tests/test_pallas_topk.py
+# H100 SXM peaks at 700 W (NVIDIA's data sheet): float32 on the CUDA cores,
+# TF32 on the tensor cores, HBM3 bytes per second
+F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 N_SLICE = 1_000_000
 Q_SLICE = 1024
 INT32_MAX = 2 ** 31 - 1
@@ -145,29 +157,87 @@ def check_topk(base: torch.Tensor, queries: torch.Tensor, ids_k, d_k,
     return float(err.max())
 
 
-def phase_topk(dev) -> dict:
-    from fspann_tpu_torch.ops.l2_topk import l2_topk
+def library_topk(base: torch.Tensor, queries: torch.Tensor, k: int):
+    """The yardstick: one PyTorch call of the same function (|b|^2 - 2 q.b
+    by cuBLAS in full float32, then top-k).  Timed only; the port never
+    calls it."""
+    from fspann_tpu_torch.ops.refine import full_fp32_matmul
+
+    with full_fp32_matmul():
+        bsq = (base * base).sum(dim=1)
+        return torch.topk(torch.addmm(bsq[None, :], queries, base.T,
+                                      alpha=-2.0), k, dim=1, largest=False)
+
+
+def topk_bound_ms(n: int, d: int, nq: int, k: int) -> tuple[float, str]:
+    """Least time for the L2 top-k: 2 Q N d FLOP at the float32 peak against
+    each input read once and each output written once."""
+    ops = 2 * nq * n * d / F32_FLOPS
+    mem = (4 * (n * d + nq * d) + 8 * nq * k) / HBM_BYTES
+    return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+
+
+def check_and_time_topk(base, queries, k: int, label: str,
+                        reps: int = 3) -> dict:
+    """The kernel against its plain twin (``check_topk``) and against
+    float64 (``float64_error`` at most ``F32_ERROR_LIMIT``, which one TF32
+    pass exceeds), then timed in turns with the plain twin and the library
+    call: plain, library, kernel, kernel, library, plain."""
+    from fspann_tpu_torch.ops.l2_topk import (F32_ERROR_LIMIT, float64_error,
+                                              l2_topk)
     from fspann_tpu_torch.ops.refine import bruteforce_topk
 
-    rng = np.random.default_rng(7)
-    base = torch.from_numpy(rng.standard_normal((262_144, 128),
-                                                dtype=np.float32)).to(dev)
-    queries = torch.from_numpy(rng.standard_normal((256, 128),
-                                                   dtype=np.float32)).to(dev)
-    ids_k, d_k = l2_topk(base, queries, 100)
-    ids_p, d_p = bruteforce_topk(base, queries, 100)
+    ids_k, d_k = l2_topk(base, queries, k)
+    ids_p, d_p = bruteforce_topk(base, queries, k)
     torch.cuda.synchronize()
     err = check_topk(base, queries, ids_k, d_k, ids_p, d_p)
-    # turns: plain, kernel, kernel, plain
-    p1 = time_ms(lambda: bruteforce_topk(base, queries, 100))
-    k1 = time_ms(lambda: l2_topk(base, queries, 100))
-    k2 = time_ms(lambda: l2_topk(base, queries, 100))
-    p2 = time_ms(lambda: bruteforce_topk(base, queries, 100))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    log(f"phase 3 l2_topk 262144x128, 256 q, K=100: max |err| {err:.3e}; "
-        f"kernel {ms:.3f} ms (turns {k1:.3f}, {k2:.3f}), plain "
-        f"{plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    f64 = float64_error(base, queries, ids_k, d_k)
+    f64_plain = float64_error(base, queries, ids_p, d_p)
+    require(f64 <= F32_ERROR_LIMIT, f"l2_topk float64_error {f64:.3e} > "
+            f"{F32_ERROR_LIMIT:g}: not float32-accurate")
+    del ids_k, d_k, ids_p, d_p
+    fns = {"plain": lambda: bruteforce_topk(base, queries, k),
+           "library": lambda: library_topk(base, queries, k),
+           "kernel": lambda: l2_topk(base, queries, k)}
+    turns = {name: [] for name in fns}
+    for name in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        turns[name].append(time_ms(fns[name], reps=reps))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    (n, d), nq = base.shape, queries.shape[0]
+    bound, by = topk_bound_ms(n, d, nq, k)
+    floor = 3 * 2 * nq * n * d / TF32_FLOPS * 1e3
+    log(f"{label} l2_topk {n}x{d}, {nq} q, K={k}: max |err| {err:.3e}; "
+        f"float64_error {f64:.3e} (plain {f64_plain:.3e}, limit "
+        f"{F32_ERROR_LIMIT:g}); kernel {ms['kernel']:.3f} ms (turns "
+        f"{', '.join(f'{t:.3f}' for t in turns['kernel'])}), plain "
+        f"{ms['plain']:.3f} ms, library {ms['library']:.3f} ms (addmm + "
+        f"topk); bound {bound:.3f} ms ({by}, float32 peak), kernel at "
+        f"{bound / ms['kernel']:.1%} of it; split-TF32 floor {floor:.3f} ms, "
+        f"kernel at {floor / ms['kernel']:.1%} of it")
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": bound, "bound_by": by,
+            "floor_ms": floor, "floor_share": floor / ms["kernel"],
+            "float64_error": f64}
+
+
+def phase_topk(dev) -> None:
+    """Phase 3: the L2 top-k kernel at d = 128 and at the 960-d point's
+    width, and the resident blocks its launch geometry assumes."""
+    from fspann_tpu_torch.ops import l2_topk as l2
+
+    got = l2.blocks_per_sm()
+    require(got == l2.RESIDENT, f"l2_topk pass 1: {got} blocks per SM, "
+            f"the geometry assumes {l2.RESIDENT}")
+    rng = np.random.default_rng(7)
+    for d in (128, 960):
+        base = torch.from_numpy(rng.standard_normal((262_144, d),
+                                                    dtype=np.float32)).to(dev)
+        queries = torch.from_numpy(rng.standard_normal(
+            (256, d), dtype=np.float32)).to(dev)
+        check_and_time_topk(base, queries, 100, "phase 3")
+        del base, queries
+    log(f"  l2_topk pass 1: {got} resident blocks per SM")
+    torch.cuda.empty_cache()
 
 
 def scan_inputs():
@@ -257,13 +327,12 @@ def require_same(a, b, what) -> None:
     require(np.array_equal(a[1], b[1]), f"{what}: distances differ")
 
 
-def phase_slice(dev, base, queries, work) -> tuple[dict, tuple]:
+def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict]:
     """Phase 5; leaves its store in ``work/db`` for phases 10 and 11 and
-    returns the kernel counts and every query's ids and distances."""
+    returns the kernel counts, every query's ids and distances, and the L2
+    top-k kernel's record at the ground-truth shape."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth
-    from fspann_tpu_torch.ops.l2_topk import l2_topk
-    from fspann_tpu_torch.ops.refine import bruteforce_topk
 
     sys_ = ForwardSecureANNSystem(slice_cfg(), os.path.join(work, "db"),
                                   128, query_batch=64)
@@ -319,22 +388,25 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple]:
     ref = serve(sys_, queries)
     sys_.shutdown()
 
-    # the kernel against its plain twin at the slice's GT shape
-    b = torch.from_numpy(base).to(dev)
-    q = torch.from_numpy(queries).to(dev)
-    ids_k, d_k = l2_topk(b, q, 100)
-    ids_p, d_p = bruteforce_topk(b, q, 100)
-    torch.cuda.synchronize()
-    err = check_topk(b, q, ids_k, d_k, ids_p, d_p)
-    p1 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
-    k1 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
-    k2 = time_ms(lambda: l2_topk(b, q, 100), reps=2)
-    p2 = time_ms(lambda: bruteforce_topk(b, q, 100), reps=2)
-    log(f"  l2_topk at {N_SLICE}x128, {Q_SLICE} q, K=100: max |err| "
-        f"{err:.3e}; kernel {(k1 + k2) / 2:.3f} ms (turns {k1:.3f}, "
-        f"{k2:.3f}), plain {(p1 + p2) / 2:.3f} ms (turns {p1:.3f}, "
-        f"{p2:.3f})")
-    return counts, ref
+    # the kernel against its plain twin and the library call at the
+    # slice's ground-truth shape
+    rec = check_and_time_topk(torch.from_numpy(base).to(dev),
+                              torch.from_numpy(queries).to(dev), 100,
+                              "  phase 5", reps=2)
+    torch.cuda.empty_cache()
+    return counts, ref, rec
+
+
+def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
+                  ids: torch.Tensor) -> tuple[int, int, float]:
+    """``code_hamming``'s least bytes: each distinct candidate row (pads
+    excluded) read once, the query codes and ids read, the scores written.
+    Returns (distinct rows, bytes, bound ms at HBM_BYTES)."""
+    valid = ids[(ids >= 0) & (ids < n)]
+    distinct = int(torch.unique(valid).numel())
+    nbytes = distinct * c * 4 + qcodes.numel() * 4 + 2 * ids.numel() * 4
+    return distinct, nbytes, nbytes / HBM_BYTES * 1e3
+
 
 def phase_code_hamming(dev) -> dict:
     """The candidate-Hamming kernel against its plain twin, bit for bit, at
@@ -373,12 +445,20 @@ def phase_code_hamming(dev) -> dict:
         p2 = time_ms(lambda: ch.code_hamming_plain(pc, qc, ids))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         gbs = q * r * c * 4 / (ms * 1e-3) / 1e9
+        distinct, nbytes, bound = hamming_bound(n, c, qc, ids)
         log(f"phase 6 code_hamming {n} rows x {c} words, {q} q x {r} "
             f"candidates: equal to plain bit for bit; kernel {ms:.3f} ms "
             f"(turns {k1:.3f}, {k2:.3f}; {gbs:.0f} GB/s of gathered rows), "
-            f"plain {plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f})")
+            f"plain {plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f}); bound "
+            f"{bound:.3f} ms ({distinct} distinct rows, {nbytes} bytes read "
+            f"once), kernel at {bound / ms:.1%} of it; no PyTorch call "
+            f"computes it")
         if rec is None:
-            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # its design's floor is the same bytes bound
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound,
+                   "bound_by": "bytes", "floor_ms": bound,
+                   "floor_share": bound / ms}
         del pc, qc, ids, got, want
     torch.cuda.empty_cache()
     return rec
@@ -490,6 +570,7 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
     from fspann_tpu_torch.io import groundtruth
     from fspann_tpu_torch.ops import coding, partition, routing
     from fspann_tpu_torch.ops import refine as refine_mod
+    from fspann_tpu_torch.ops.code_hamming import code_hamming
 
     cfg = SystemConfig()
     cfg = dataclasses.replace(
@@ -570,9 +651,33 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
             f"truth, warm-up), {peak_serve / 2**30:.2f} GiB (serving)")
 
         # the first batch's route on the card against the plain torch route
-        # on CPU copies of the same table, codes and tombstones
+        # on CPU copies of the same table, codes and tombstones; the ids it
+        # hands to code_hamming give that kernel's bound on real candidates
         qc, qk = idx.encode_queries(queries[:64])
-        got = idx.route_batch(qc, qk)
+        handed = []
+
+        def hamming_spy(pc, qcodes, ids):
+            handed.append((pc, qcodes, ids))
+            return code_hamming(pc, qcodes, ids)
+
+        routing.code_hamming = hamming_spy
+        try:
+            got = idx.route_batch(qc, qk)
+        finally:
+            routing.code_hamming = code_hamming
+        require(len(handed) == 1, f"{len(handed)} code_hamming calls")
+        pc, hq, hids = handed.pop()
+        distinct, nbytes, bound = hamming_bound(pc.shape[0], pc.shape[1], hq,
+                                                hids)
+        ch_ms = time_ms(lambda: code_hamming(pc, hq, hids), reps=10)
+        gathered = int(((hids >= 0) & (hids < pc.shape[0])).sum())
+        log(f"  code_hamming on the first batch's candidates: {hids.shape[0]}"
+            f" q x {hids.shape[1]} ids, {gathered} valid "
+            f"({gathered * pc.shape[1] * 4} gathered bytes), {distinct} "
+            f"distinct rows; bytes read once {nbytes}, bound {bound:.3f} ms "
+            f"at {HBM_BYTES / 1e12:.2f} TB/s; kernel {ch_ms:.3f} ms, at "
+            f"{bound / ch_ms:.1%} of the bound")
+        del pc, hq, hids
         want = routing.route_rerank(
             partition.table_to(idx.table, "cpu"), coding.words_to_torch(qc),
             torch.from_numpy(qk), idx._tombstones().cpu(),
@@ -908,14 +1013,14 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="fspann_smoke_")
     try:
-        rec = phase_topk(dev)
+        phase_topk(dev)
         unpacked_ms = phase_scan(dev)
         t0 = time.perf_counter()
         base, queries = synthetic.lsh_hard_corpus(N_SLICE, 128, Q_SLICE,
                                                   seed=42)
         log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
             f"{time.perf_counter() - t0:.1f} s")
-        scan_counts, ref = phase_slice(dev, base, queries, work)
+        scan_counts, ref, rec = phase_slice(dev, base, queries, work)
         ch_rec = phase_code_hamming(dev)
         phase_probe_equal(dev, base, queries)
         probe_counts = phase_probe_slice(dev, base, queries,
@@ -936,14 +1041,12 @@ def main() -> int:
         "source": "fspann_tpu_torch/csrc/l2_topk.cu",
         "replaces": "fspann_tpu/ops/pallas_topk.py:106",
         "launches": l2_launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}, {
+        **rec}, {
         "name": "code_hamming", "route": "cuda",
         "source": "fspann_tpu_torch/csrc/code_hamming.cu",
         "replaces": "fspann_tpu/ops/routing.py:281",
         "launches": probe_counts["code_hamming"],
-        "max_abs_err": ch_rec["max_abs_err"],
-        "ms": ch_rec["ms"], "plain_ms": ch_rec["plain_ms"]}]}), flush=True)
+        **ch_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -112,9 +112,117 @@ def test_l2_topk_rejects_what_the_kernel_does_not_take():
         l2.l2_topk(base, torch.zeros((2, 9)), 4)
 
 
+def _tf32(x: torch.Tensor, rounded: bool) -> torch.Tensor:
+    """float32 cut to TF32's 10 mantissa bits: rounded to nearest (half an
+    ulp added to the magnitude, as the kernel forms ``hi``) or truncated (as
+    the tensor core reads ``lo``)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + (0x1000 if rounded else 0)) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_topk(base, queries, k, one_pass=False):
+    """The CUDA kernel's arithmetic in torch: q.b = lo.hi + hi.lo + hi.hi
+    over TF32 halves (hi.hi alone with ``one_pass``, the control build),
+    float32 sums, |b|^2 exact in float32, then the (|b|^2 - 2 q.b, row)
+    order."""
+    b, q = _t(base), _t(queries)
+    bh, qh = _tf32(b, True), _tf32(q, True)
+    bl, ql = _tf32(b - bh, False), _tf32(q - qh, False)
+    dot = qh @ bh.T if one_pass else ql @ bh.T + qh @ bl.T + qh @ bh.T
+    score = (b * b).sum(dim=1)[None, :] - 2.0 * dot
+    order = torch.sort(score, dim=1, stable=True).indices[:, :k]
+    v = torch.gather(score, 1, order)
+    dist = torch.sqrt(torch.clamp(v + (q * q).sum(dim=1)[:, None], min=0.0))
+    return order.numpy(), dist.numpy()
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+def test_split_tf32_product_matches_jax_within_tolerance(rng, d):
+    """The kernel's split-TF32 product, emulated here, holds the same
+    tolerance against JAX's brute force and Pallas kernel as float32 does;
+    ids differ only at ties."""
+    from fspann_tpu.ops import refine as jax_refine
+    from fspann_tpu.ops.pallas_topk import bitonic_topk
+
+    n, q, k = 600, 5, 50
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    ids, dist = _split_tf32_topk(base, queries, k)
+    j_ids, j_dist = bitonic_topk(base, queries, k, tile_n=256, q_tile=8,
+                                 interpret=True)
+    x_ids, x_dist = jax_refine.bruteforce_topk(base, queries, k)
+    np.testing.assert_allclose(dist, j_dist, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dist, x_dist, rtol=RTOL, atol=ATOL)
+    # float32-level agreement, far inside the tolerance (one TF32 pass
+    # keeps about three digits and is not)
+    assert np.abs(dist - x_dist).max() <= 1e-5 * x_dist.max()
+    for i in range(q):
+        untied = np.abs(np.diff(x_dist[i])) > ATOL + RTOL * x_dist[i][1:]
+        keep = np.concatenate([[True], untied]) & np.concatenate([untied,
+                                                                  [True]])
+        np.testing.assert_array_equal(ids[i][keep], np.asarray(x_ids)[i][keep])
+        np.testing.assert_array_equal(ids[i][keep], np.asarray(j_ids)[i][keep])
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+def test_f32_error_limit_separates_split_from_one_tf32_pass(rng, d):
+    """``F32_ERROR_LIMIT`` passes the split-TF32 product and float32, and
+    fails one TF32 pass, on the emulated arithmetic (the chip's readings:
+    scripts/torch_l2_topk_precision.py)."""
+    n, q, k = 2000, 64, 100
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+
+    def err(ids, dist):
+        return l2.float64_error(_t(base), _t(queries),
+                                torch.from_numpy(np.asarray(ids)),
+                                torch.from_numpy(np.asarray(dist)))
+
+    assert err(*_split_tf32_topk(base, queries, k)) <= l2.F32_ERROR_LIMIT
+    assert err(*refine.bruteforce_topk(base, _t(queries), k)) \
+        <= l2.F32_ERROR_LIMIT
+    assert err(*_split_tf32_topk(base, queries, k, one_pass=True)) \
+        > l2.F32_ERROR_LIMIT
+
+
+@pytest.mark.parametrize("n,nq", [(1_000_000, 1024), (262_144, 256),
+                                  (262_144, 129), (1_000_000, 1),
+                                  (5_000_000, 2048)])
+def test_launch_geometry_whole_waves(n, nq):
+    """Every row lies in exactly one split, every split holds a row, and the
+    grid is whole waves of ``RESIDENT`` blocks on each of 132 SMs."""
+    rows, splits = l2._splits(n, nq, 132)
+    starts = np.arange(splits) * rows
+    assert starts[-1] < n <= starts[-1] + rows
+    owner = np.minimum(np.arange(n) // rows, splits - 1)
+    assert np.array_equal(np.bincount(owner, minlength=splits),
+                          np.minimum(rows, n - starts))
+    assert rows >= l2.MIN_ROWS
+    blocks = -(-nq // l2.QT) * splits
+    assert blocks % (132 * l2.RESIDENT) == 0
+    assert blocks <= l2.MAX_WAVES * 132 * l2.RESIDENT
+
+
+@pytest.mark.parametrize("n,nq", [(20_000, 33), (700, 4), (100, 1)])
+def test_launch_geometry_small_grid_fits_one_wave(n, nq):
+    """Where the whole grid fits one wave it takes every split that leaves
+    ``MIN_ROWS`` rows to each (at least one split)."""
+    rows, splits = l2._splits(n, nq, 132)
+    assert splits == max(1, n // l2.MIN_ROWS)
+    assert (splits - 1) * rows < n <= splits * rows
+    assert -(-nq // l2.QT) * splits <= 132 * l2.RESIDENT
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,q,k", [(700, 16, 4, 10), (5000, 128, 70, 100),
-                                     (20_000, 960, 33, 128)])
+@pytest.mark.parametrize("n,d,q,k", [
+    (700, 12, 1, 1),              # one query, k = 1
+    (5000, 100, 63, 100),         # one query short of the 64-query tile
+    (20_001, 960, 65, 128),       # the widest vectors, k = MAX_K
+    (130_001, 128, 129, 100),     # many splits; rows not a multiple of 128
+    (3001, 13, 64, 10),           # d % 4 != 0: 4-byte copies
+    (128, 12, 65, 128),           # n == k
+    (100, 16, 3, 100),            # n == k, one split shorter than a tile
+])
 def test_l2_topk_cuda_kernel_matches_plain(n, d, q, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -129,13 +237,56 @@ def test_l2_topk_cuda_kernel_matches_plain(n, d, q, k):
     p_dist = p_dist.cpu().numpy()
     np.testing.assert_allclose(dist.cpu().numpy(), p_dist, rtol=RTOL,
                                atol=ATOL)
+    # float32-accurate: one TF32 pass passes the tolerance above, not this
+    assert l2.float64_error(base, queries, ids, dist) <= l2.F32_ERROR_LIMIT
     ids, p_ids = ids.cpu().numpy(), p_ids.cpu().numpy()
     for i in range(q):
         assert len(set(ids[i].tolist())) == k
+        assert ((ids[i] >= 0) & (ids[i] < n)).all()
         untied = np.abs(np.diff(p_dist[i])) > ATOL + RTOL * p_dist[i][1:]
         keep = np.concatenate([[True], untied]) & np.concatenate([untied,
                                                                   [True]])
         np.testing.assert_array_equal(ids[i][keep], p_ids[i][keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,k", [
+    (1500, 128, 1),               # one split; buffers fill to CAP
+    (2000, 64, 100),              # one split, one query tile
+    (30_000, 129, 128),           # 29 splits, 3 query tiles, k = MAX_K
+])
+def test_l2_topk_cuda_kernel_every_row_admitted(n, q, k):
+    """Scores that fall with the row inside each split, for every query:
+    each tile beats the running K-th, so every row of every tile is
+    admitted and the admission buffers fill as fast as they can.  Small
+    integer coordinates make every score exact (TF32 halves included), so
+    ids and distances equal the plain twin's, ties broken by the row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rows, _ = l2._splits(
+        n, q, torch.cuda.get_device_properties(0).multi_processor_count)
+    d = 16
+    base = np.zeros((n, d), np.float32)
+    base[:, 0] = np.arange(n) % rows + 1        # rises inside each split
+    queries = np.zeros((q, d), np.float32)
+    queries[:, 0] = rows + 1 + np.arange(q)     # above every row: |b|^2 -
+    # 2 q.b = c^2 - 2 s c falls as c rises, and stays below 2^24
+    ids, dist = l2.l2_topk(_t(base).cuda(), _t(queries).cuda(), k)
+    p_ids, p_dist = refine.bruteforce_topk(_t(base).cuda(),
+                                           _t(queries).cuda(), k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ids.cpu().numpy(), p_ids.cpu().numpy())
+    np.testing.assert_array_equal(dist.cpu().numpy(), p_dist.cpu().numpy())
+    # the nearest row is the highest offset of a split, the first such
+    assert (ids.cpu().numpy()[:, 0] == rows - 1).all()
+
+
+@pytest.mark.cuda
+def test_l2_topk_cuda_resident_blocks():
+    """The launch geometry assumes ``RESIDENT`` blocks of pass 1 per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    assert l2.blocks_per_sm() == l2.RESIDENT
 
 
 @pytest.mark.cuda
