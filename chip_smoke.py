@@ -22,9 +22,11 @@ Phases (any failure raises and exits non-zero):
      ground truth from the kernel; recall@10 >= 0.98 and ratio@100 <= 1.01;
      then the kernel against its plain twin, float64 and the library call
      at the ground-truth shape (1M x 128, 1,024 queries);
-  6. the candidate-Hamming kernel against its plain torch twin, bit for
-     bit: 1M rows x 96 words, 64 queries x 49,152 candidates with pads, and
-     the same at 192 words, beside the bound of the distinct rows read once;
+  6. the candidate-Hamming kernel's two paths (gather and row-window
+     sweep) against its plain torch twin, bit for bit: 1M rows x 96 words,
+     64 queries x 49,152 candidates with pads, ascending and shuffled, and
+     the same at 192 words; each path timed in turns beside the bound of
+     the distinct rows read once, and the path the wrapper picks;
   7. the probe route on CUDA against the same route on the CPU at 100k rows
      (G = 24, W = 4, block 128, 1% tombstones, Q in {64, 7, 1}, narrow and
      wide keys): partition build, route and route_rerank equal on every
@@ -34,9 +36,10 @@ Phases (any failure raises and exits non-zero):
      payloads, device encode, device refine, batch 64) through
      ForwardSecureANNSystem: table, codes and refine on the card, both
      kernels launched, the first batch's CUDA route equal to the CPU route
-     on copies of the same state, and ``code_hamming``'s bound on the ids
-     that batch hands it (distinct rows read once); recall@10 >= 0.65 and
-     ratio@100 <= 1.03.
+     on copies of the same state with the sweep path picked, and
+     ``code_hamming`` timed on the ids that batch hands it, at Q = 64 and on
+     the first 1 and 8 queries' rows, each path beside its bound (distinct
+     rows read once); recall@10 >= 0.65 and ratio@100 <= 1.03.
      ``--profile`` adds a torch.profiler pass over the served queries;
   9. the packed scan state at phase 4's inputs: built on CUDA == built on
      the CPU, the packed chunked scan == the unpacked flat scan on every
@@ -408,10 +411,25 @@ def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
     return distinct, nbytes, nbytes / HBM_BYTES * 1e3
 
 
+def time_hamming_paths(pc, qc, ids, reps: int = 10) -> dict:
+    """Both paths of ``code_hamming`` on one batch, in turns (gather, sweep,
+    sweep, gather): the two readings of each."""
+    from fspann_tpu_torch.ops import code_hamming as ch
+
+    fns = {"gather": lambda: ch.code_hamming_gather(pc, qc, ids),
+           "sweep": lambda: ch.code_hamming_sweep(pc, qc, ids)}
+    turns = {name: [] for name in fns}
+    for name in ("gather", "sweep", "sweep", "gather"):
+        fns[name]()                                         # warm-up
+        turns[name].append(time_ms(fns[name], reps=reps))
+    return turns
+
+
 def phase_code_hamming(dev) -> dict:
-    """The candidate-Hamming kernel against its plain twin, bit for bit, at
-    the probe slice's shape (Q=64, R = 24 groups x 16 probes x 128 rows)
-    and at the 6,144-bit width."""
+    """The candidate-Hamming kernel's two paths against its plain twin, bit
+    for bit, at the probe slice's shape (Q=64, R = 24 groups x 16 probes x
+    128 rows) and at the 6,144-bit width, on ascending and on shuffled
+    ids."""
     from fspann_tpu_torch.ops import code_hamming as ch
 
     gen = torch.Generator(device=dev)
@@ -434,32 +452,60 @@ def phase_code_hamming(dev) -> dict:
         ids = torch.where(pad, torch.full_like(ids, INT32_MAX), ids)
         ids[:, ::97] = -1
         ids[:, 1::97] = n
-        got = ch.code_hamming(pc, qc, ids)
+        shuffled = ids[:, torch.randperm(r, generator=gen, device=dev)] \
+            .contiguous()
         want = ch.code_hamming_plain(pc, qc, ids)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"code_hamming C={c} != plain")
-        err = float((got.long() - want.long()).abs().max())
+        err = 0.0
+        for name, fn in (("gather", ch.code_hamming_gather),
+                         ("sweep", ch.code_hamming_sweep)):
+            got = fn(pc, qc, ids)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"code_hamming {name} C={c} != "
+                    f"plain on ascending ids")
+            err = max(err, float((got.long() - want.long()).abs().max()))
+        # the sweep under a false promise: exact, and slow (every span
+        # covers most of the row); one launch, timed as it is checked
+        want_s = ch.code_hamming_plain(pc, qc, shuffled)
+        require(torch.equal(ch.code_hamming_gather(pc, qc, shuffled), want_s),
+                f"code_hamming gather C={c} != plain on shuffled ids")
+        box = []
+        false_ms = time_ms(lambda: box.append(
+            ch.code_hamming_sweep(pc, qc, shuffled)), reps=1)
+        require(torch.equal(box.pop(), want_s),
+                f"code_hamming sweep C={c} != plain on shuffled ids")
+        gather_shuffled = time_ms(
+            lambda: ch.code_hamming_gather(pc, qc, shuffled), reps=10)
+        del want_s, shuffled, got
         p1 = time_ms(lambda: ch.code_hamming_plain(pc, qc, ids))
-        k1 = time_ms(lambda: ch.code_hamming(pc, qc, ids), reps=10)
-        k2 = time_ms(lambda: ch.code_hamming(pc, qc, ids), reps=10)
+        turns = time_hamming_paths(pc, qc, ids)
         p2 = time_ms(lambda: ch.code_hamming_plain(pc, qc, ids))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        gbs = q * r * c * 4 / (ms * 1e-3) / 1e9
+        ms = {name: sum(t) / len(t) for name, t in turns.items()}
+        plain_ms = (p1 + p2) / 2
+        path = ch.choose_path(q, r, n, c, True)
         distinct, nbytes, bound = hamming_bound(n, c, qc, ids)
         log(f"phase 6 code_hamming {n} rows x {c} words, {q} q x {r} "
-            f"candidates: equal to plain bit for bit; kernel {ms:.3f} ms "
-            f"(turns {k1:.3f}, {k2:.3f}; {gbs:.0f} GB/s of gathered rows), "
-            f"plain {plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f}); bound "
+            f"candidates: gather and sweep equal to plain bit for bit on "
+            f"ascending and on shuffled ids; ascending: gather "
+            f"{ms['gather']:.3f} ms (turns "
+            f"{', '.join(f'{t:.3f}' for t in turns['gather'])}), sweep "
+            f"{ms['sweep']:.3f} ms (turns "
+            f"{', '.join(f'{t:.3f}' for t in turns['sweep'])}; "
+            f"{ch.window_shift(c, q)} = log2 rows a window), plain "
+            f"{plain_ms:.3f} ms (turns {p1:.3f}, {p2:.3f}); bound "
             f"{bound:.3f} ms ({distinct} distinct rows, {nbytes} bytes read "
-            f"once), kernel at {bound / ms:.1%} of it; no PyTorch call "
+            f"once); the wrapper picks {path}, at {bound / ms[path]:.1%} of "
+            f"the bound; shuffled: gather {gather_shuffled:.3f} ms, sweep "
+            f"under the false promise {false_ms:.1f} ms; no PyTorch call "
             f"computes it")
         if rec is None:
-            # its design's floor is the same bytes bound
-            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            # the path the main route takes; its design's floor is the same
+            # bytes bound
+            rec = {"max_abs_err": err, "ms": ms[path], "plain_ms": plain_ms,
                    "library_ms": None, "bound_ms": bound,
                    "bound_by": "bytes", "floor_ms": bound,
-                   "floor_share": bound / ms}
-        del pc, qc, ids, got, want
+                   "floor_share": bound / ms[path], "path": path,
+                   "gather_ms": ms["gather"], "sweep_ms": ms["sweep"]}
+        del pc, qc, ids, want
     torch.cuda.empty_cache()
     return rec
 
@@ -569,6 +615,7 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
     from fspann_tpu_torch.config import SystemConfig
     from fspann_tpu_torch.io import groundtruth
     from fspann_tpu_torch.ops import coding, partition, routing
+    from fspann_tpu_torch.ops import code_hamming as ch_mod
     from fspann_tpu_torch.ops import refine as refine_mod
     from fspann_tpu_torch.ops.code_hamming import code_hamming
 
@@ -656,28 +703,44 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
         qc, qk = idx.encode_queries(queries[:64])
         handed = []
 
-        def hamming_spy(pc, qcodes, ids):
-            handed.append((pc, qcodes, ids))
-            return code_hamming(pc, qcodes, ids)
+        def hamming_spy(pc, qcodes, ids, ascending=False):
+            handed.append((pc, qcodes, ids, ascending))
+            return code_hamming(pc, qcodes, ids, ascending)
 
         routing.code_hamming = hamming_spy
+        before = read_launches()["code_hamming"]
         try:
             got = idx.route_batch(qc, qk)
         finally:
             routing.code_hamming = code_hamming
         require(len(handed) == 1, f"{len(handed)} code_hamming calls")
-        pc, hq, hids = handed.pop()
-        distinct, nbytes, bound = hamming_bound(pc.shape[0], pc.shape[1], hq,
-                                                hids)
-        ch_ms = time_ms(lambda: code_hamming(pc, hq, hids), reps=10)
-        gathered = int(((hids >= 0) & (hids < pc.shape[0])).sum())
-        log(f"  code_hamming on the first batch's candidates: {hids.shape[0]}"
-            f" q x {hids.shape[1]} ids, {gathered} valid "
-            f"({gathered * pc.shape[1] * 4} gathered bytes), {distinct} "
-            f"distinct rows; bytes read once {nbytes}, bound {bound:.3f} ms "
-            f"at {HBM_BYTES / 1e12:.2f} TB/s; kernel {ch_ms:.3f} ms, at "
-            f"{bound / ch_ms:.1%} of the bound")
-        del pc, hq, hids
+        require(read_launches()["code_hamming"] == before + 1,
+                "one code_hamming call is not one counted launch")
+        pc, hq, hids, ascending = handed.pop()
+        n_rows, c_words = pc.shape
+        picked = ch_mod.choose_path(*hids.shape, n_rows, c_words, ascending)
+        require(ascending and picked == "sweep", f"the first batch took the "
+                f"{picked} path (ascending={ascending})")
+        for nq in (64, 8, 1):
+            sq, sid = hq[:nq].contiguous(), hids[:nq].contiguous()
+            distinct, nbytes, bound = hamming_bound(n_rows, c_words, sq, sid)
+            turns = time_hamming_paths(pc, sq, sid)
+            ms = {k: sum(t) / len(t) for k, t in turns.items()}
+            path = ch_mod.choose_path(nq, sid.shape[1], n_rows, c_words,
+                                      ascending)
+            gathered = int(((sid >= 0) & (sid < n_rows)).sum())
+            log(f"  code_hamming on the first batch's candidates, first "
+                f"{nq} q x {sid.shape[1]} ids: {gathered} valid "
+                f"({gathered * c_words * 4} gathered bytes), {distinct} "
+                f"distinct rows; bytes read once {nbytes}, bound "
+                f"{bound:.4f} ms at {HBM_BYTES / 1e12:.2f} TB/s; gather "
+                f"{ms['gather']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns['gather'])}), sweep "
+                f"{ms['sweep']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns['sweep'])}); the "
+                f"wrapper picks {path}: {ms[path]:.4f} ms, at "
+                f"{bound / ms[path]:.1%} of the bound")
+        del pc, hq, hids, sq, sid
         want = routing.route_rerank(
             partition.table_to(idx.table, "cpu"), coding.words_to_torch(qc),
             torch.from_numpy(qk), idx._tombstones().cpu(),

@@ -5,12 +5,13 @@ Two kinds of library, both plain C ABIs loaded with ctypes:
 * CUDA kernels: ``csrc/<name>.cu`` → ``build/lib<name>.so`` by ``nvcc`` for
   ``sm_90a`` (Hopper).  No PyTorch headers are included, so a build takes
   seconds.
-* Host C kernels, compiled from the JAX package's C sources with their
-  directory's Makefile flags (the source is read, the JAX package's
-  directories are never written): AES-256-GCM
-  (``fspann_tpu/crypto/native/aes_gcm.c`` → ``build/libfspann_crypto.so``)
-  and the packed Hamming top-L scan
-  (``fspann_tpu/ops/native/hamming_topl.c`` → ``build/libfspann_scan.so``).
+* Host C kernels, compiled from the port's own byte-for-byte copies of the
+  JAX package's C sources (``fspann_tpu/crypto/native/aes_gcm.c`` and
+  ``fspann_tpu/ops/native/hamming_topl.c``; tests/test_torch_isolation.py
+  holds the copies to them) with their Makefiles' flags: AES-256-GCM
+  (``csrc/native/aes_gcm.c`` → ``build/libfspann_crypto.so``) and the
+  packed Hamming top-L scan (``csrc/native/hamming_topl.c`` →
+  ``build/libfspann_scan.so``).
 
 ``build/`` is git-ignored; every fresh checkout builds here on first use.
 A lock file per library serialises concurrent builds of that library
@@ -33,14 +34,12 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
 CSRC_DIR = os.path.join(_PKG, "csrc")
-AES_GCM_SRC = os.path.join(os.path.dirname(_PKG), "fspann_tpu", "crypto",
-                           "native", "aes_gcm.c")
-# fspann_tpu/crypto/native/Makefile: CFLAGS, plus -shared
+AES_GCM_SRC = os.path.join(CSRC_DIR, "native", "aes_gcm.c")
+# the JAX package's crypto/native/Makefile: CFLAGS, plus -shared
 AES_GCM_CFLAGS = ["-O3", "-Wall", "-Wextra", "-maes", "-mpclmul", "-mssse3",
                   "-msse4.1", "-mf16c", "-fPIC", "-pthread", "-shared"]
-NATIVE_SCAN_SRC = os.path.join(os.path.dirname(_PKG), "fspann_tpu", "ops",
-                               "native", "hamming_topl.c")
-# fspann_tpu/ops/native/Makefile: CFLAGS, plus -shared
+NATIVE_SCAN_SRC = os.path.join(CSRC_DIR, "native", "hamming_topl.c")
+# the JAX package's ops/native/Makefile: CFLAGS, plus -shared
 NATIVE_SCAN_CFLAGS = ["-O3", "-Wall", "-Wextra", "-mpopcnt", "-fPIC",
                       "-pthread", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,8 +6,8 @@ with exact histogram top-L selection.  The torch scan on the CPU scores
 through the unpacked int8 bit matrix, 8 bytes of stream traffic per code
 bit per query batch; this kernel streams the packed words once.
 
-The library is built from the repository's C source
-``fspann_tpu/ops/native/hamming_topl.c`` into the port's build directory
+The library is built from the port's copy of the C source,
+``csrc/native/hamming_topl.c``, into the port's build directory
 (:func:`fspann_tpu_torch._build.native_scan_library_path`); a failed build
 raises.
 

@@ -287,10 +287,12 @@ def route_rerank(table: PartitionTable, qcodes: torch.Tensor,
                                            tombstones, max_probes,
                                            need_scores=False)
     pc = point_codes.reshape(point_codes.shape[0], g * w)
-    fine = code_hamming(pc, qcodes.reshape(q, g * w).contiguous(), sid)
+    # live ids ascend with their column: the kernel may sweep the codes in
+    # row order, and (fine, id) is the lower-index-first order of
+    # lax.top_k; pads (fine and id INT32_MAX) rank last
+    fine = code_hamming(pc, qcodes.reshape(q, g * w).contiguous(), sid,
+                        ascending=True)
     k = min(limit, sid.shape[-1])
-    # live ids ascend with their column, so (fine, id) is the lower-index-
-    # first order of lax.top_k; pads (fine and id INT32_MAX) rank last
     key = torch.topk((fine.to(torch.int64) << 32) | sid.to(torch.int64), k,
                      dim=-1, largest=False, sorted=True).values
     score = (key >> 32).to(torch.int32)

@@ -7,7 +7,10 @@ modules instead of importing them.  Each copy's code must equal its
 source's, compared as syntax trees without import statements and
 docstrings (the one sanctioned code edit: ``crypto/aesgcm.py`` and
 ``ops/native_scan.py`` build their C library into the port's build
-directory instead of running ``make`` inside ``fspann_tpu``)."""
+directory instead of running ``make`` inside ``fspann_tpu``).  The two C
+sources those libraries are built from are carried too, byte for byte, and
+no Python file of the port or of ``chip_smoke.py`` names a path under
+``fspann_tpu/`` in its code."""
 
 import ast
 import os
@@ -38,6 +41,9 @@ CARRIED = ["config.py", "types.py", "crypto/aesgcm.py", "crypto/keys.py",
 NATIVE_BUILD = {"_NATIVE_DIR", "_LIB_PATH", "_load"}
 NATIVE_LIBS = {"crypto/aesgcm.py": "aes_gcm_library_path()",
                "ops/native_scan.py": "native_scan_library_path()"}
+# C sources: the JAX package's file -> the port's copy under csrc/native/
+CARRIED_C = {"crypto/native/aes_gcm.c": "csrc/native/aes_gcm.c",
+             "ops/native/hamming_topl.c": "csrc/native/hamming_topl.c"}
 
 
 def _tree(path):
@@ -89,6 +95,51 @@ def test_carried_module_matches_source(rel):
         assert NATIVE_LIBS[rel] in text and "subprocess" not in text
     else:
         assert _code(port) == _code(src)
+
+
+@pytest.mark.parametrize("rel", sorted(CARRIED_C))
+def test_carried_c_source_equals_source(rel):
+    with open(os.path.join(JAX_PKG, rel), "rb") as f:
+        src = f.read()
+    with open(os.path.join(PORT, CARRIED_C[rel]), "rb") as f:
+        assert f.read() == src
+
+
+def test_build_reads_only_the_ports_sources():
+    from fspann_tpu_torch import _build
+
+    for path in (_build.AES_GCM_SRC, _build.NATIVE_SCAN_SRC, _build.CSRC_DIR,
+                 _build.BUILD_DIR):
+        assert os.path.commonpath([PORT, path]) == PORT, path
+    assert _build.AES_GCM_SRC == os.path.join(PORT, CARRIED_C[
+        "crypto/native/aes_gcm.c"])
+    assert _build.NATIVE_SCAN_SRC == os.path.join(PORT, CARRIED_C[
+        "ops/native/hamming_topl.c"])
+
+
+def _code_strings(path):
+    """Every string constant of a module's code, docstrings left out."""
+    return [n.value for n in ast.walk(_tree(path))
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def test_no_python_file_builds_a_path_into_the_jax_package():
+    """No string in the port's code is the JAX package's directory name or a
+    path below it.  ``chip_smoke.py`` may say which JAX line a kernel
+    replaces (``file.py:line``, the ``replaces`` key of its record); it may
+    not name a file otherwise."""
+    part = re.compile(r"(^|[\\/])fspann_tpu($|[\\/])")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _dirs, names in os.walk(PORT):
+        files += [os.path.join(dirpath, fn) for fn in names
+                  if fn.endswith(".py")]
+    assert len(files) > 40
+    for path in files:
+        for text in _code_strings(path):
+            if path.endswith("chip_smoke.py") \
+                    and re.fullmatch(r"fspann_tpu/[\w/]+\.py:\d+", text):
+                continue
+            assert not part.search(text), f"{path}: {text!r}"
 
 
 def _port_modules():

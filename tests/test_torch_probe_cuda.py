@@ -1,6 +1,7 @@
 """The probe slice's device code on a CUDA card against its plain torch
-version on the CPU: the candidate-Hamming kernel (csrc/code_hamming.cu) bit
-for bit, and the partition build, route, device encode and refine.
+version on the CPU: the candidate-Hamming kernel (csrc/code_hamming.cu),
+both of its paths, bit for bit, and the partition build, route, device
+encode and refine.
 
 Every test here needs a card and skips without one (the kernel has no CPU
 mode).  The file imports no jax, so it runs on a GPU host without it:
@@ -44,6 +45,105 @@ def test_code_hamming_cuda_kernel_matches_plain(card, n, c, q, r):
     torch.cuda.synchronize()
     assert ch.code_hamming.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+PATHS = {"gather": ch.code_hamming_gather, "sweep": ch.code_hamming_sweep}
+
+
+def _ascending_ids(rng, n, q, r):
+    """Live ids ascending with the column, duplicates masked in place, pads
+    of every kind in between."""
+    ids = np.sort(rng.integers(0, n, size=(q, r)), axis=1).astype(np.int32)
+    ids[:, 1:][ids[:, 1:] == ids[:, :-1]] = routing.INT32_MAX
+    ids[rng.random((q, r)) < 0.1] = routing.INT32_MAX
+    ids[:, 5::41] = -1
+    ids[:, 6::41] = n
+    return ids
+
+
+# (n, c, q, r): every width class (1 word, W = 3, the 3,072- and 6,144-bit
+# codes), R off the gather block's 64 columns and the pre-pass's 256, N off
+# the window's rows, spans far longer than the 16 ids staged ahead (r >> n)
+EDGES = [(5000, 96, 64, 4096), (3001, 192, 7, 1000), (700, 3, 1, 77),
+         (900, 1, 3, 4099), (20_000, 96, 64, 777), (600, 12, 5, 4096),
+         (129, 96, 2, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("n,c,q,r", EDGES)
+def test_code_hamming_cuda_paths_match_plain(card, path, n, c, q, r):
+    rng = np.random.default_rng(n + c)
+    pc, qc = _words(rng, (n, c)), _words(rng, (q, c))
+    ids = _ascending_ids(rng, n, q, r)
+    ids[(ids >= 256) & (ids < 512)] = routing.INT32_MAX   # windows nobody names
+    if q > 2:
+        ids[2] = -1                                       # no live id at all
+    ids = torch.from_numpy(ids)
+    want = ch.code_hamming_plain(pc, qc, ids)
+    before = ch.code_hamming.launches
+    got = PATHS[path](pc.to(card), qc.to(card), ids.to(card))
+    torch.cuda.synchronize()
+    assert ch.code_hamming.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 3, 5, 9])
+def test_code_hamming_cuda_sweep_any_window(card, shift):
+    rng = np.random.default_rng(shift)
+    n, c, q, r = 1500, 12, 6, 900
+    pc, qc = _words(rng, (n, c)), _words(rng, (q, c))
+    ids = torch.from_numpy(_ascending_ids(rng, n, q, r))
+    got = ch.code_hamming_sweep(pc.to(card), qc.to(card), ids.to(card), shift,
+                                threads=128)
+    assert torch.equal(got.cpu(), ch.code_hamming_plain(pc, qc, ids))
+
+
+@pytest.mark.cuda
+def test_code_hamming_cuda_false_promise_is_exact(card):
+    """Shuffled ids under ``ascending=True``, at sizes where the wrapper
+    picks the sweep: slow, and still equal to the plain twin."""
+    rng = np.random.default_rng(9)
+    n, c, q, r = 5000, 12, 8, 2000
+    assert ch.choose_path(q, r, n, c, True) == "sweep"
+    pc, qc = _words(rng, (n, c)), _words(rng, (q, c))
+    ids = _ascending_ids(rng, n, q, r)
+    ids = torch.from_numpy(np.stack([row[rng.permutation(r)] for row in ids]))
+    got = ch.code_hamming(pc.to(card), qc.to(card), ids.to(card),
+                          ascending=True)
+    assert torch.equal(got.cpu(), ch.code_hamming_plain(pc, qc, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_code_hamming_cuda_unaligned_point_codes(card, path):
+    """A contiguous view 4 bytes off a 16-byte boundary: the kernel copies
+    it 4 bytes at a time."""
+    rng = np.random.default_rng(4)
+    n, c, q, r = 3000, 96, 9, 1500
+    flat = _words(rng, (n * c + 1,)).to(card)
+    pc = flat[1:].view(n, c)
+    assert pc.is_contiguous() and pc.data_ptr() % 16 == 4
+    qc = _words(rng, (q, c))
+    ids = torch.from_numpy(_ascending_ids(rng, n, q, r))
+    got = PATHS[path](pc, qc.to(card), ids.to(card))
+    assert torch.equal(got.cpu(), ch.code_hamming_plain(pc.cpu(), qc, ids))
+
+
+@pytest.mark.cuda
+def test_code_hamming_cuda_sweep_back_to_back(card):
+    """Two sweeps on one stream with no synchronisation between: each resets
+    its own span table."""
+    rng = np.random.default_rng(6)
+    n, c, q, r = 4000, 96, 16, 1000
+    pc, qc = _words(rng, (n, c)).to(card), _words(rng, (q, c)).to(card)
+    a = torch.from_numpy(_ascending_ids(rng, n, q, r)).to(card)
+    b = torch.from_numpy(_ascending_ids(rng, n // 2, q, r)).to(card)
+    got = [ch.code_hamming_sweep(pc, qc, ids) for ids in (a, b, a)]
+    torch.cuda.synchronize()
+    for ids, g in zip((a, b, a), got):
+        assert torch.equal(g, ch.code_hamming_plain(pc, qc, ids))
 
 
 @pytest.mark.cuda
