@@ -43,22 +43,45 @@ Phases (any failure raises and exits non-zero):
      ``--profile`` adds a torch.profiler pass over the served queries;
   9. the packed scan state at phase 4's inputs: built on CUDA == built on
      the CPU, the packed chunked scan == the unpacked flat scan on every
-     field (Q in {64, 7, 1}, chunk 32,768), ``update_rows`` into zero
-     padding keeps the words' storage and scans like a fresh build, and the
-     native host scan == the CUDA scan;
+     field (Q in {64, 7, 1}, chunk 32,768, and 30,000: a ragged tail),
+     ``update_rows`` into zero padding keeps the words' storage and scans
+     like a fresh build, and the native host scan == the CUDA scan; the
+     packed scan's device ms per batch and its peak device memory;
  10. the scan lifecycle at 1M through ForwardSecureANNSystem: phase 5's
      store restored into a packed state padded to 1M + 65,536 rows, the
-     1,024 queries served with phase 5's exact ids and distances, 4 live
-     inserts of 16,384 rows in place and one past capacity, self search,
-     delete, rotation with re-encryption, flush_all and an unpacked restore
-     that reproduces the results;
+     1,024 queries served with phase 5's exact ids and distances and a peak
+     device memory UNDER the unpacked scan point's (phase 5) serving peak,
+     the packed route's device ms per batch, 4 live inserts of 16,384 rows
+     in place and one past capacity, self search, delete, rotation with
+     re-encryption, flush_all and an unpacked restore that reproduces the
+     results;
  11. the same store served by the native host scan: the first batch's
      route equals the CUDA scan's;
  12. the command line (``fspann_tpu_torch.api.cli``) on 100k rows of the
      corpus with ``--gt AUTO`` and the HARD_SCAN profile of
      configs/hard1m.json, then ``--query-only``: exit 0 and recall@10 at or
-     above CLI_RECALL_GATE.
-Each served path (phases 5, 8, 10 and 12) runs with the kernels' launch
+     above CLI_RECALL_GATE;
+ 13. the sharded index (``parallel/sharded.ShardedIndex``) at 1M on the
+     card, from phase 5's corpus and bank: built at 1, 4 and 8 shards,
+     unpacked and packed, merged on the device ("ici") and on the host; the
+     scan route of the 1,024 queries at L = 2,000 equals the single-device
+     scan over the same codes in every combination (and phase 5's route,
+     when device and host encode agree on every bit, which is printed);
+     ``build_stream`` in 100,000-row chunks == the one-shot build; the
+     probe route with the re-rank at 4 shards == the same route on CPU
+     copies of the state, with each shard's ``code_hamming`` path; 32
+     deletes leave every route; 4 ``append_scan_rows`` of 16,384 rows keep
+     the storage and are found by self search; ``save_state`` →
+     ``restore_state`` reproduces the route; device ms per batch of 64 at
+     1, 4 and 8 shards;
+ 14. the distributed facade (``parallel/serving.DistributedEncrypted
+     System``) at 1M: scan mode, 4 shards, f16 payloads, L = 2,000, margin
+     40, batch 64; ``build``, the 1,024 queries through ``search_batches``
+     with ground truth from the kernel (recall@10 >= 0.98, ratio@100 <=
+     1.01, final ids equal to phase 5's), ``insert_live``, ``delete``,
+     ``rotate_and_migrate``, ``save_index`` and a fresh object's
+     ``restore_index`` serving the same results.
+Each served path (phases 5, 8, 10, 12, 13 and 14) runs with the kernels' launch
 counts set to 0 just before it and read just after.  The last two lines of
 standard output are the kernels' JSON record and the device JSON line.
 """
@@ -67,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -131,6 +155,17 @@ def time_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def release_earlier_phases() -> tuple[int, int]:
+    """Free what earlier phases left allocated on the card: a system that
+    was shut down stays alive through its reference cycles until Python's
+    cycle collector runs, and with it its scan state (3 GB at 1M rows).
+    Returns the bytes allocated before and after."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return before, torch.cuda.memory_allocated()
 
 
 def check_topk(base: torch.Tensor, queries: torch.Tensor, ids_k, d_k,
@@ -297,6 +332,26 @@ def read_launches() -> dict:
     return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches}
 
 
+def scan_call(idx, queries):
+    """The scan that ``idx.route_batch`` runs for ``queries``, as a closure
+    over inputs already on the card: what CUDA events around it time is the
+    device's own work for one batch."""
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    rt, cb = idx.cfg.runtime, idx.cfg.paper.code_bits
+    st, tomb = idx._scan_state, idx._tombstones_scan()
+    qbits = torch.from_numpy(hs.unpack_bits_numpy(
+        idx.encode_queries(queries)[0], cb)).to(idx.device)
+    kw = dict(anchor=rt.adaptive_decrypt_anchor,
+              margin=rt.adaptive_decrypt_margin,
+              floor=rt.adaptive_decrypt_floor)
+    limit = min(rt.effective_refinement(), idx._n_rows)
+    if isinstance(st, hs.PackedScanState):
+        return lambda: hs.scan_chunked(st, qbits, tomb, limit, code_bits=cb,
+                                       **kw)
+    return lambda: hs.scan(st, qbits, tomb, limit, **kw)
+
+
 def slice_cfg(**runtime):
     """bench.py's scan operating point (phases 5, 10 and 11), with
     ``runtime`` overrides."""
@@ -330,10 +385,12 @@ def require_same(a, b, what) -> None:
     require(np.array_equal(a[1], b[1]), f"{what}: distances differ")
 
 
-def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict]:
+def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     """Phase 5; leaves its store in ``work/db`` for phases 10 and 11 and
-    returns the kernel counts, every query's ids and distances, and the L2
-    top-k kernel's record at the ground-truth shape."""
+    returns the kernel counts, every query's ids and distances, the L2
+    top-k kernel's record at the ground-truth shape, and what phases 10, 13
+    and 14 compare with: the serving peak of device memory, the bank, the
+    host-encoded codes and the scan route of every query."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth
 
@@ -364,15 +421,17 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict]:
     t_gt = time.perf_counter() - t0
     sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
     sys_.profiler.clear_rows()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
     wall = time.perf_counter() - t0
+    peak_serve = torch.cuda.max_memory_allocated()
     counts = read_launches()
     launches = counts["l2_topk"]
     require(launches > 0, "ground truth did not run the l2_topk kernel")
     rows = [r for r in sys_.profiler.rows if r.k == 10]
     nq = len(rows)
-    peak = torch.cuda.max_memory_allocated()
     log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
         f"{counts}")
     log(f"  {agg.paper_line()}")
@@ -385,10 +444,25 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict]:
     ratio = agg.ratio_at_k[100]
     log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
         f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+        f"peak device memory {peak / 2**30:.2f} GiB (build, ground truth, "
+        f"warm-up), {peak_serve / 2**30:.2f} GiB (serving)")
     require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
     require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
     ref = serve(sys_, queries)
+    idx = sys_.index
+    routed = [idx.route_batch(*idx.encode_queries(queries[s:s + 64]))
+              for s in range(0, Q_SLICE, 64)]
+    b0 = idx.encode_queries(queries[:64])
+    call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
+    route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
+    log(f"  unpacked scan of one batch of 64 on inputs on the card: "
+        f"{route_ms:.3f} ms (CUDA events); route_batch from host codes, "
+        f"host work between launches included: {call_ms:.3f} ms")
+    extras = {"peak_serve": peak_serve, "bank": bank,
+              "codes": idx._scan_codes, "route_ms": route_ms,
+              "route": tuple(np.concatenate(
+                  [getattr(r, f).cpu().numpy() for r in routed])
+                  for f in ("ids", "scores"))}
     sys_.shutdown()
 
     # the kernel against its plain twin and the library call at the
@@ -397,7 +471,7 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict]:
                               torch.from_numpy(queries).to(dev), 100,
                               "  phase 5", reps=2)
     torch.cuda.empty_cache()
-    return counts, ref, rec
+    return counts, ref, rec, extras
 
 
 def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
@@ -790,10 +864,14 @@ def phase_packed(dev, unpacked_ms: float) -> None:
     chunked = dict(chunk=32_768, code_bits=cb, **kw)
     for q in (64, 7, 1):
         want = hs.scan(flat, qbits[:q], tb, 2000, **kw)
-        got = hs.scan_chunked(packed, qbits[:q], tb, 2000, **chunked)
-        for f in FIELDS:
-            require(torch.equal(getattr(got, f), getattr(want, f)),
-                    ("packed", q, f))
+        # 100,000 = 3 x 32,768 + 1,696 (a tail under L, re-read from
+        # n - chunk) = 3 x 30,000 + 10,000 (a tail scanned as it is)
+        for chunk in (32_768, 30_000):
+            got = hs.scan_chunked(packed, qbits[:q], tb, 2000,
+                                  **{**chunked, "chunk": chunk})
+            for f in FIELDS:
+                require(torch.equal(getattr(got, f), getattr(want, f)),
+                        ("packed", q, chunk, f))
     want = hs.scan(flat, qbits, tb, 2000, **kw)
 
     # live rows written into zero padding in place == a fresh build
@@ -825,6 +903,13 @@ def phase_packed(dev, unpacked_ms: float) -> None:
                                                **chunked))
     ms_route = time_ms(lambda: hs.scan_chunked(packed, qbits, tb, 2000,
                                                code_bits=cb, **kw))
+    del want, nat
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hs.scan_chunked(packed, qbits, tb, 2000, code_bits=cb, **kw)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - held
     log(f"phase 9 packed scan 100k x 3072 bits: words int32 "
         f"{tuple(packed.words.shape)} ({packed.words.numel() * 4 / 1e6:.1f}"
         f" MB vs {flat.bits.numel() / 1e6:.1f} MB unpacked), CUDA == CPU; "
@@ -833,12 +918,15 @@ def phase_packed(dev, unpacked_ms: float) -> None:
         f"Q=64: packed {ms_route:.3f} ms (default chunk: one whole unpack), "
         f"{ms_chunk:.3f} ms (chunk 32768), unpacked flat {unpacked_ms:.3f} "
         f"ms (phase 4), native host {native_ms:.1f} ms "
-        f"({native_scan._num_threads()} thread(s))")
+        f"({native_scan._num_threads()} thread(s)); one packed scan's "
+        f"scratch above what is resident: {scratch / 2**20:.1f} MiB "
+        f"({n * 384 / 2**20:.1f} MiB of word bytes, 8x that of bits)")
     del flat, packed
     torch.cuda.empty_cache()
 
 
-def phase_lifecycle(dev, work, base, queries, ref) -> tuple[dict, dict]:
+def phase_lifecycle(dev, work, base, queries, ref,
+                    p5: dict) -> tuple[dict, dict]:
     """Phase 10: phase 5's store restored into a packed, capacity-padded
     system; serve, live insert in place and past capacity, delete, rotate,
     flush, restore unpacked.  Returns the kernel counts and the restored
@@ -851,7 +939,7 @@ def phase_lifecycle(dev, work, base, queries, ref) -> tuple[dict, dict]:
     cap = N_SLICE + 65_536
     extra, _ = synthetic.lsh_hard_corpus(5 * 16_384, 128, 1, seed=43)
     new_ids = N_SLICE + np.arange(len(extra), dtype=np.int64)
-    torch.cuda.empty_cache()
+    stale, left = release_earlier_phases()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                   # counts from here are the path's
     sys_ = ForwardSecureANNSystem(
@@ -871,7 +959,9 @@ def phase_lifecycle(dev, work, base, queries, ref) -> tuple[dict, dict]:
     log(f"phase 10 lifecycle at {N_SLICE}: restore {t_restore:.2f} s into a "
         f"packed state {tuple(st.words.shape)} int32 on {st.words.device}, "
         f"{words_gb:.3f} GB of words (phase 5's bit matrix: "
-        f"{N_SLICE * 3072 / 1e9:.2f} GB)")
+        f"{N_SLICE * 3072 / 1e9:.2f} GB); earlier phases' systems held "
+        f"{stale / 2**30:.2f} GiB of device memory until the cycle "
+        f"collector ran, {left / 2**30:.2f} GiB after")
 
     gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
     sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
@@ -888,7 +978,18 @@ def phase_lifecycle(dev, work, base, queries, ref) -> tuple[dict, dict]:
         f"{sum(r.route_ms for r in rows) / len(rows):.3f} ms per query  "
         f"recall@10 {agg.recall_at_k[10]:.4f}  mean decrypted "
         f"{agg.mean_cand_decrypted:.1f}  peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB while serving (unpacked scan point, phase "
+        f"5: {p5['peak_serve'] / 2**30:.2f} GiB)")
+    require(peak < p5["peak_serve"], f"the packed state's serving peak "
+            f"{peak} is not under the unpacked scan point's "
+            f"{p5['peak_serve']}")
+    b0 = idx.encode_queries(queries[:64])
+    call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
+    route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
+    log(f"  packed scan of one batch of 64 over {cap} rows on inputs on the "
+        f"card: {route_ms:.3f} ms (CUDA events; unpacked, phase 5: "
+        f"{p5['route_ms']:.3f} ms); route_batch from host codes: "
+        f"{call_ms:.3f} ms")
 
     ptr, shape = st.words.data_ptr(), tuple(st.words.shape)
     ms = []
@@ -1052,6 +1153,399 @@ def phase_cli(base, queries, work) -> dict:
         f"{CLI_RECALL_GATE}; kernel launches on this path {counts}")
     return counts
 
+SHARD_L, SHARD_CAP = 2000, N_SLICE + 65_536
+_POPC8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1) \
+    .sum(axis=1)
+
+
+def differing_bits(a: np.ndarray, b: np.ndarray) -> int:
+    """Bits in which two uint32 word arrays of one shape differ."""
+    x = np.bitwise_xor(a, b)
+    return int(_POPC8[x.view(np.uint8)].sum()) if x.any() else 0
+
+
+def f16_round_trip(x: np.ndarray) -> np.ndarray:
+    """What an f16 store decodes: the vectors phase 5's index was coded on."""
+    return x.astype(np.float16).astype(np.float32)
+
+
+def scan_routes(idx, queries, **kw) -> tuple[np.ndarray, np.ndarray]:
+    """The sharded scan route of ``queries`` in batches of 64."""
+    out = [idx.scan_route(queries[s:s + 64], limit=SHARD_L, **kw)
+           for s in range(0, len(queries), 64)]
+    return tuple(np.concatenate([o[i] for o in out]) for i in (0, 1))
+
+
+def phase_sharded(dev, base, queries, work, p5) -> dict:
+    """Phase 13: the sharded index at 1M on the card."""
+    from fspann_tpu_torch.io import synthetic
+    from fspann_tpu_torch.ops import code_hamming as ch_mod
+    from fspann_tpu_torch.ops import coding, routing
+    from fspann_tpu_torch.ops import hamming_scan as hs
+    from fspann_tpu_torch.ops.code_hamming import code_hamming
+    from fspann_tpu_torch.parallel.sharded import ShardedIndex, make_mesh
+
+    bank = p5["bank"]
+    cb = bank.code_bits
+    base_q = f16_round_trip(base)
+    release_earlier_phases()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+
+    def build(nd, layout, keep_codes=False, capacity=SHARD_CAP):
+        idx = ShardedIndex(make_mesh(nd, dev), bank, block_size=128)
+        t0 = time.perf_counter()
+        idx.build(base_q, keep_base=False, keep_codes=keep_codes,
+                  keep_bits=layout, capacity=capacity)
+        torch.cuda.synchronize()
+        return idx, time.perf_counter() - t0
+
+    # device encode against phase 5's host encode, and the single-device
+    # scan over the sharded index's own codes: the reference of every route
+    a4, t_a4 = build(4, True, keep_codes=True)
+    require(a4.bits.is_cuda and a4.table.ids.is_cuda and a4.tombs.is_cuda,
+            "sharded state not on the card")
+    codes = coding.words_to_numpy(a4.point_codes[:N_SLICE])
+    flips = differing_bits(codes, p5["codes"])
+    qwords = coding.encode(torch.from_numpy(queries).to(dev),
+                           coding.bank_to(bank, dev))[0]
+    qflips = differing_bits(coding.words_to_numpy(qwords),
+                            coding.encode_numpy(queries, bank)[0])
+    state = hs.build_scan_state(codes, cb, device=dev)
+    no_tomb = torch.zeros(N_SLICE, dtype=torch.bool, device=dev)
+    want = [hs.scan(state, hs.unpack_bits_device(qwords[s:s + 64], cb),
+                    no_tomb, SHARD_L) for s in range(0, Q_SLICE, 64)]
+    want = tuple(np.concatenate([getattr(r, f).cpu().numpy() for r in want])
+                 for f in ("ids", "scores"))
+    del state, no_tomb
+    torch.cuda.empty_cache()
+    log(f"phase 13 sharded index {N_SLICE}x128 on {dev}, 3072-bit codes, "
+        f"capacity {SHARD_CAP}: device encode differs from phase 5's host "
+        f"encode in {flips} of {codes.size * 32} corpus bits and {qflips} "
+        f"query bits")
+    if flips == 0 and qflips == 0:
+        require_same(want, p5["route"], "single-device scan over the "
+                     "sharded codes vs phase 5's route")
+        log(f"  single-device scan over the sharded index's codes == phase "
+            f"5's route of the {Q_SLICE} queries at L={SHARD_L}")
+    else:
+        same = float((want[0] == p5["route"][0]).mean())
+        log(f"  the encoders differ, so phase 5's route is no reference: "
+            f"{same:.6f} of its ids are equal")
+
+    # every combination: shards x layout x merge; device ms per batch of 64
+    ms, secs, kept = {}, {(4, True): t_a4}, {(4, True): a4}
+    batch0 = queries[:64]
+    for nd in (4, 8, 1):
+        for layout in (True, "packed"):
+            idx = kept.get((nd, layout))
+            if idx is None:
+                idx, secs[nd, layout] = build(nd, layout)
+            for merge in ("ici", "host"):
+                idx.merge_backend = merge
+                require_same(scan_routes(idx, queries), want,
+                             f"sharded scan, {nd} shards, "
+                             f"{'packed' if layout == 'packed' else 'bits'}, "
+                             f"merge {merge}")
+                ms[nd, layout, merge] = time_ms(
+                    lambda: idx.scan_route_dispatch(batch0, limit=SHARD_L),
+                    reps=5)
+            idx.merge_backend = "ici"
+            if nd == 4:
+                kept[nd, layout] = idx
+            else:
+                del idx
+                torch.cuda.empty_cache()
+    b4 = kept[4, "packed"]
+    lay = {True: "unpacked", "packed": "packed"}
+    log(f"  scan route of {Q_SLICE} q at L={SHARD_L} == the single-device "
+        f"scan, ids and scores, at 1, 4 and 8 shards x unpacked, packed x "
+        f"merge on the device, on the host")
+    log("  build s: " + ", ".join(
+        f"{nd} shards {lay[la]} {t:.2f}" for (nd, la), t in secs.items()))
+    log("  device ms per batch of 64 (CUDA events; query upload, device "
+        "encode, per-shard scan, merge, pinned copy): " + "; ".join(
+            f"{nd} shards {lay[la]} {ms[nd, la, 'ici']:.3f} (host merge "
+            f"{ms[nd, la, 'host']:.3f})" for nd in (1, 4, 8)
+            for la in (True, "packed")))
+
+    # streamed build == one-shot build (tables and route), both without
+    # capacity: the one-shot build pads with copies of the last row, the
+    # stream with zero rows, and the tables hold the (masked) pad rows
+    one, _ = build(4, True, capacity=None)
+    st = ShardedIndex(make_mesh(4, dev), bank, block_size=128)
+    t0 = time.perf_counter()
+    total = st.build_stream(
+        (base_q[s:s + 100_000] for s in range(0, N_SLICE, 100_000)), N_SLICE,
+        keep_bits=True)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    require(total == N_SLICE and st.shard_rows == one.shard_rows, total)
+    for f in one.table._fields:
+        x, y = getattr(one.table, f), getattr(st.table, f)
+        require((x is None and y is None) or torch.equal(x, y),
+                ("streamed table", f))
+    require(torch.equal(st.bits, one.bits) and torch.equal(st.popc, one.popc),
+            "streamed scan state")
+    require_same(scan_routes(st, queries), want, "streamed build's route")
+    log(f"  build_stream in 100000-row chunks {t_stream:.2f} s: stacked "
+        f"tables {tuple(st.table.ids.shape)}, scan state and route == the "
+        f"one-shot build's")
+    del st, one
+    torch.cuda.empty_cache()
+
+    # probe route with the re-rank at 4 shards against CPU copies
+    host = ShardedIndex(make_mesh(4, "cpu"), bank, block_size=128)
+    host.n, host.shard_rows = a4.n, a4.shard_rows
+    host.table = type(a4.table)(*(None if f is None else f.cpu()
+                                  for f in a4.table))
+    host.point_codes = a4.point_codes.cpu()
+    host.tombs = a4.tombs.cpu()
+    paths = []
+
+    def hamming_spy(pc, qcodes, ids, ascending=False):
+        paths.append(ch_mod.choose_path(*ids.shape, *pc.shape, ascending))
+        return code_hamming(pc, qcodes, ids, ascending)
+
+    probe = dict(probes=16, refinement_limit=56_000, rerank_limit=SHARD_L)
+    routing.code_hamming = hamming_spy
+    before = read_launches()["code_hamming"]
+    try:
+        got = a4.route(batch0, **probe)
+    finally:
+        routing.code_hamming = code_hamming
+    require(read_launches()["code_hamming"] == before + 4 and len(paths) == 4,
+            f"{len(paths)} code_hamming calls for 4 shards")
+    # the CPU copy routes the codes the card encoded: the comparison is
+    # of the route; the two encoders' difference is printed beside it
+    qc0, qk0 = coding.encode(torch.from_numpy(batch0).to(dev),
+                             coding.bank_to(bank, dev))
+    cpu_flips = differing_bits(
+        coding.words_to_numpy(qc0),
+        coding.words_to_numpy(coding.encode(torch.from_numpy(batch0),
+                                            bank)[0]))
+    device_encode = coding.encode
+    coding.encode = lambda x, b: (qc0.cpu(), qk0.cpu())
+    t0 = time.perf_counter()
+    try:
+        require_same(got, host.route(batch0, **probe), "probe route vs CPU")
+    finally:
+        coding.encode = device_encode
+    t_cpu = time.perf_counter() - t0
+    probe_ms = time_ms(lambda: a4.route_dispatch(batch0, **probe), reps=3)
+    del host
+    log(f"  probe route (16 probes, re-rank to {SHARD_L}) of the first "
+        f"batch at 4 shards == the same route on CPU copies of the state "
+        f"({t_cpu:.1f} s there; torch's CPU encode of the batch differs "
+        f"from the card's in {cpu_flips} bits); code_hamming once per shard "
+        f"over "
+        f"{a4.shard_rows} rows: paths {paths}; {probe_ms:.3f} ms of device "
+        f"time per batch")
+
+    # deletes leave every route
+    gone = np.intersect1d(got[0][got[0] >= 0], want[0][:64])[:32] \
+        .astype(np.int64)
+    require(len(gone) == 32, "fewer than 32 ids in both routes")
+    tombs_ptr = a4.tombs.data_ptr()
+    for idx in (a4, b4):
+        idx.mark_deleted(gone)
+    require(a4.tombs.data_ptr() == tombs_ptr, "mark_deleted moved the mask")
+    for name, res in (("scan", a4.scan_route(batch0, limit=SHARD_L)),
+                      ("packed scan", b4.scan_route(batch0, limit=SHARD_L)),
+                      ("probe", a4.route(batch0, probes=16,
+                                         refinement_limit=56_000)),
+                      ("re-rank", a4.route(batch0, **probe))):
+        require(not np.isin(res[0], gone).any(), f"{name}: deleted id")
+    require(np.isin(want[0][:64], gone).any(), "the deletes hit no result")
+
+    # live inserts in place, found by self search
+    extra, _ = synthetic.lsh_hard_corpus(4 * 16_384, 128, 1, seed=43)
+    extra = f16_round_trip(extra)
+    ptrs = [(i.words if i.words is not None else i.bits).data_ptr()
+            for i in (a4, b4)] + [a4.popc.data_ptr(), b4.popc.data_ptr()]
+    ins_ms = []
+    for i in range(4):
+        sl = slice(i * 16_384, (i + 1) * 16_384)
+        for idx in (a4, b4):
+            t0 = time.perf_counter()
+            ids = idx.append_scan_rows(extra[sl])
+            torch.cuda.synchronize()
+            ins_ms.append((time.perf_counter() - t0) * 1e3)
+            require(ids[0] == N_SLICE + sl.start and len(ids) == 16_384, ids)
+    require([(i.words if i.words is not None else i.bits).data_ptr()
+             for i in (a4, b4)] + [a4.popc.data_ptr(), b4.popc.data_ptr()]
+            == ptrs, "append_scan_rows moved the scan state")
+    require(a4.n == b4.n == N_SLICE + len(extra) and a4.point_codes is None,
+            (a4.n, b4.n))
+    pick = np.random.default_rng(5).choice(len(extra), 64, replace=False)
+    for idx in (a4, b4):
+        res = idx.scan_route(extra[pick], limit=SHARD_L)
+        require((res[0][:, 0] == N_SLICE + pick).all(),
+                "appended rows not first")
+        require(not np.isin(res[0], gone).any(), "deleted id after insert")
+    require_same(b4.scan_route(batch0, limit=SHARD_L),
+                 a4.scan_route(batch0, limit=SHARD_L),
+                 "packed vs unpacked after inserts")
+
+    # checkpoint: save_state -> restore_state reproduces the route
+    path = os.path.join(work, "mesh_state.npz")
+    t0 = time.perf_counter()
+    b4.save_state(path)
+    t_save = time.perf_counter() - t0
+    after = scan_routes(a4, queries[:128])
+    del a4
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = ShardedIndex.restore_state(path, make_mesh(4, dev),
+                                      keep_bits="packed")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    back.mark_deleted(gone)
+    require(back.n == b4.n and back.words.is_cuda, back.n)
+    require_same(scan_routes(back, queries[:128]), after, "restored route")
+    require(torch.equal(back.words, b4.words)
+            and torch.equal(back.popc, b4.popc), "restored words")
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches()
+    log(f"  32 deleted ids left the scan, packed scan, probe and re-rank "
+        f"routes; 4 x 16384 append_scan_rows in place (storage kept): "
+        f"unpacked {', '.join(f'{m:.1f}' for m in ins_ms[0::2])} ms, packed "
+        f"{', '.join(f'{m:.1f}' for m in ins_ms[1::2])} ms; own id first "
+        f"for 64 appended rows; save_state {t_save:.2f} s "
+        f"({os.path.getsize(path) / 1e6:.0f} MB), restore_state "
+        f"{t_restore:.2f} s into the packed layout: route and words "
+        f"reproduced; peak device memory {peak / 2**30:.2f} GiB; kernel "
+        f"launches on this path {counts}")
+    del back, b4
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_distributed(dev, base, queries, work, p5, ref) -> dict:
+    """Phase 14: the distributed encrypted facade at 1M, scan mode, 4
+    shards, through ``build`` (the one-shot build: the bank's sample is
+    phase 5's, the first 100,000 stored rows)."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.io import groundtruth, synthetic
+    from fspann_tpu_torch.parallel.serving import DistributedEncryptedSystem
+    from fspann_tpu_torch.parallel.sharded import make_mesh
+
+    db = os.path.join(work, "mesh_db")
+    cfg = slice_cfg()
+    batches = [queries[s:s + 64] for s in range(0, Q_SLICE, 64)]
+
+    def served(sys_, qs, k=100):
+        res = sys_.search_batches([qs[s:s + 64]
+                                   for s in range(0, len(qs), 64)], k)
+        return (np.concatenate([r[0] for r in res]),
+                np.concatenate([r[1] for r in res]))
+
+    release_earlier_phases()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+    sys_ = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, dev))
+    t0 = time.perf_counter()
+    sys_.build(base, sample=100_000, capacity=SHARD_CAP)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    idx = sys_.index
+    bank = idx.bank
+    same_bank = all(np.array_equal(getattr(bank, f), getattr(p5["bank"], f))
+                    for f in ("alpha", "r", "omega"))
+    require(same_bank, "the facade's bank is not phase 5's")
+    require(idx.bits is not None and idx.bits.is_cuda and idx.base is None
+            and idx.merge_backend == cfg.runtime.mesh_merge, "facade state")
+    per_shard = [len(s.meta) for s in sys_.store.shards]
+    require(per_shard == [max(0, min(N_SLICE - s * idx.shard_rows,
+                                     idx.shard_rows)) for s in range(4)],
+            per_shard)
+    gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
+    sys_.search_batch(batches[0], 100)                    # warm-up
+    peak_build = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sys_.search_batches(batches, 100)
+    wall = time.perf_counter() - t0
+    peak_serve = torch.cuda.max_memory_allocated()
+    got = (np.concatenate([r[0] for r in res]),
+           np.concatenate([r[1] for r in res]))
+    counts = read_launches()
+    require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
+    require(got[0].shape == (Q_SLICE, 100) and got[0].dtype == np.int64
+            and np.isfinite(got[1]).all(), "result shape")
+    recalls, ratios = ForwardSecureANNSystem._metrics_block(
+        None, np.arange(Q_SLICE), queries, got[0], got[1], (10, 100), gtm,
+        base)
+    r10, r100 = float(recalls[10].mean()), float(recalls[100].mean())
+    ratio = float(ratios[100].mean())
+    ids_equal = float((got[0] == ref[0]).mean())
+    log(f"phase 14 distributed facade {N_SLICE}x128, scan mode, 4 shards, "
+        f"f16 payloads, L={SHARD_L}, margin 40, batch 64: build "
+        f"{t_build:.1f} s (bank == phase 5's, fingerprint "
+        f"{fingerprint(bank.alpha, bank.r, bank.omega)}; arenas "
+        f"{per_shard}); q/s {Q_SLICE / wall:.1f}  ART "
+        f"{wall / Q_SLICE * 1e3:.3f} ms  recall@10 {r10:.4f}  recall@100 "
+        f"{r100:.4f}  ratio@100 {ratio:.4f}  ids equal to phase 5's "
+        f"{ids_equal:.6f}  peak device memory {peak_build / 2**30:.2f} GiB "
+        f"(build, ground truth, warm-up), {peak_serve / 2**30:.2f} GiB "
+        f"(serving); kernel launches on this path {counts}")
+    require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
+    require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
+    require(np.array_equal(got[0], ref[0]), f"final ids differ from phase "
+            f"5's in {int((got[0] != ref[0]).sum())} places")
+    require(np.allclose(got[1], ref[1], rtol=1e-6, atol=0), "distances "
+            "differ from phase 5's")
+
+    # lifecycle: live insert, delete, rotation, checkpoint, fresh restore
+    extra, _ = synthetic.lsh_hard_corpus(16_384, 128, 1, seed=47)
+    ptr = idx.bits.data_ptr()
+    t0 = time.perf_counter()
+    new_ids = sys_.insert_live(extra)
+    ins_ms = (time.perf_counter() - t0) * 1e3
+    require(new_ids[0] == N_SLICE and sys_.n == N_SLICE + len(extra)
+            and idx.bits.data_ptr() == ptr, "insert_live")
+    pick = np.random.default_rng(7).choice(len(extra), 64, replace=False)
+    own = served(sys_, extra[pick], k=10)[0]
+    require((own[:, 0] == new_ids[pick]).all(), "appended rows not first")
+    gone = new_ids[pick[:32]]
+    sys_.delete(gone)
+    own = served(sys_, extra[pick], k=10)[0]
+    require(not np.isin(own, gone).any(), "deleted rows returned")
+    require((own[32:, 0] == new_ids[pick[32:]]).all(), "kept rows lost")
+    probe = queries[:128]
+    before = served(sys_, probe)
+    t0 = time.perf_counter()
+    rep = sys_.rotate_and_migrate()
+    t_rot = time.perf_counter() - t0
+    require(rep.reencrypted == sys_.n - len(gone), rep)
+    require_same(served(sys_, probe), before, "after rotation")
+    t0 = time.perf_counter()
+    sys_.save_index()
+    t_save = time.perf_counter() - t0
+    sys_.close()
+    del sys_, idx
+    torch.cuda.empty_cache()
+    back = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, dev))
+    try:
+        t0 = time.perf_counter()
+        n_back = back.restore_index()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        require(n_back == N_SLICE + len(extra), n_back)
+        require_same(served(back, probe), before, "fresh restore")
+        own = served(back, extra[pick], k=10)[0]
+        require(not np.isin(own, gone).any(), "deletes lost in restore")
+    finally:
+        back.close()
+    log(f"  insert_live 16384 rows {ins_ms:.1f} ms (bits storage kept), own "
+        f"id first; 32 deleted, never returned; rotate_and_migrate "
+        f"re-encrypted {rep.reencrypted} in {t_rot:.2f} s, 128 queries "
+        f"unchanged; save_index {t_save:.2f} s; a fresh object's "
+        f"restore_index {t_restore:.2f} s serves the same ids and "
+        f"distances, deletes re-derived from the stores")
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1083,20 +1577,25 @@ def main() -> int:
                                                   seed=42)
         log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
             f"{time.perf_counter() - t0:.1f} s")
-        scan_counts, ref, rec = phase_slice(dev, base, queries, work)
+        scan_counts, ref, rec, p5 = phase_slice(dev, base, queries, work)
         ch_rec = phase_code_hamming(dev)
         phase_probe_equal(dev, base, queries)
         probe_counts = phase_probe_slice(dev, base, queries,
                                          profile="--profile" in sys.argv[1:])
         phase_packed(dev, unpacked_ms)
         life_counts, cuda_route = phase_lifecycle(dev, work, base, queries,
-                                                  ref)
+                                                  ref, p5)
         phase_native(work, queries, cuda_route)
         cli_counts = phase_cli(base, queries, work)
+        shard_counts = phase_sharded(dev, base, queries, work, p5)
+        mesh_counts = phase_distributed(dev, base, queries, work, p5, ref)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    l2_launches = sum(c["l2_topk"] for c in (scan_counts, probe_counts,
-                                             life_counts, cli_counts))
+    paths = (scan_counts, probe_counts, life_counts, cli_counts,
+             shard_counts, mesh_counts)
+    l2_launches = sum(c["l2_topk"] for c in paths)
+    require(shard_counts["code_hamming"] > 0, "the sharded probe route did "
+            "not run code_hamming")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1108,7 +1607,7 @@ def main() -> int:
         "name": "code_hamming", "route": "cuda",
         "source": "fspann_tpu_torch/csrc/code_hamming.cu",
         "replaces": "fspann_tpu/ops/routing.py:281",
-        "launches": probe_counts["code_hamming"],
+        "launches": sum(c["code_hamming"] for c in paths),
         **ch_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

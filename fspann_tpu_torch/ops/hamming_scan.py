@@ -26,6 +26,7 @@ function of the LSH codes the server already stores.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -38,10 +39,9 @@ from .routing import _INF, RouteResult
 # (|part| <= B <= a few thousand); the JAX package's value
 _DEAD = 1 << 30
 
-# byte -> its 8 bits, MSB first; byte -> popcount
-_BITS8 = torch.tensor(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
-                                    axis=1).astype(np.int8))
-_POPC8 = _BITS8.sum(dim=1, dtype=torch.int32)
+# byte -> popcount
+_POPC8 = torch.tensor(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                                    axis=1).sum(axis=1), dtype=torch.int32)
 
 
 class ScanState(NamedTuple):
@@ -77,38 +77,44 @@ def unpack_bits_numpy(codes: np.ndarray, code_bits: int) -> np.ndarray:
 
 
 def _word_bytes(words: torch.Tensor) -> torch.Tensor:
-    """int32 or int64 word bit patterns [..., W] → big-endian byte values
-    [..., W*4] (int64 in [0, 256)).  Words are widened to int64 because
-    ``>>`` on ``torch.uint32`` is not implemented on every device; the
-    arithmetic shift of a sign-extended int32 word keeps its low 32 bits,
-    and the mask drops the rest."""
-    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int64,
-                          device=words.device)
-    by = words.to(torch.int64)[..., None] >> shifts
-    by &= 0xFF
-    return by.reshape(*words.shape[:-1], words.shape[-1] * 4)
+    """int32 word bit patterns [..., W] (or int64 holding the same low 32
+    bits) → their big-endian bytes, uint8 [..., W*4].  Nothing wider than
+    the words is made: the words are reinterpreted as bytes and each word's
+    four bytes reversed on a little-endian host."""
+    w32 = words.to(torch.int32).contiguous()
+    by = w32.view(torch.uint8).reshape(*w32.shape, 4)
+    if sys.byteorder == "little":
+        by = by.flip(-1)
+    return by.reshape(*w32.shape[:-1], w32.shape[-1] * 4)
 
 
 def unpack_bits_device(words: torch.Tensor, code_bits: int) -> torch.Tensor:
     """Device-side unpack: int32 or int64 word bit patterns [..., G, W] →
     int8 [..., G*code_bits], the MSB-first convention of
-    :func:`unpack_bits_numpy` (a byte → 8-bit lookup table)."""
+    :func:`unpack_bits_numpy`.  Every operand is one byte wide: the scratch
+    is the words' bytes plus the bits (8 per byte)."""
     g = words.shape[-2]
-    bits = _BITS8.to(words.device)[_word_bytes(words)]      # [..., G, W*4, 8]
+    by = _word_bytes(words)                                 # [..., G, W*4]
+    # the shifts that bring a byte's bits out MSB first, made on the device
+    # (a host constant would cost a blocking copy per chunk)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=words.device)
+    bits = by[..., None] >> shifts                          # [..., G, W*4, 8]
+    bits = bits.bitwise_and_(1).view(torch.int8)
     bits = bits.reshape(*words.shape[:-1], -1)[..., :code_bits]
     return bits.reshape(*words.shape[:-2], g * code_bits)
 
 
 def _popcounts(words: torch.Tensor, chunk: int) -> torch.Tensor:
     """int32 [N] popcounts of word bit patterns [N, ...], by a byte lookup
-    table over ``chunk`` rows at a time (pad bits are zero by the packers'
-    construction, ops/coding.py, so they equal the bit-matrix row sums)."""
+    table (indexed in int32) over ``chunk`` rows at a time (pad bits are
+    zero by the packers' construction, ops/coding.py, so they equal the
+    bit-matrix row sums)."""
     n = words.shape[0]
     popc = torch.empty(n, dtype=torch.int32, device=words.device)
     popc8 = _POPC8.to(words.device)
     for lo in range(0, n, chunk):
         w = words[lo:lo + chunk]
-        popc[lo:lo + len(w)] = popc8[_word_bytes(w)].reshape(
+        popc[lo:lo + len(w)] = popc8[_word_bytes(w).to(torch.int32)].reshape(
             len(w), -1).sum(dim=1, dtype=torch.int32)
     return popc
 
@@ -137,8 +143,8 @@ def build_scan_state_packed(codes: np.ndarray, code_bits: int,
                             device=None,
                             chunk: int = 65_536) -> PackedScanState:
     """Upload the packed words as int32 bit patterns (4 bytes per 32 code
-    bits; the int64 widening happens one chunk at a time inside the scan)
-    and take their popcounts on the device in ``chunk``-row steps.
+    bits; the scan unpacks them one chunk at a time) and take their
+    popcounts on the device in ``chunk``-row steps.
     ``code_bits`` is the JAX signature's; the words carry their width."""
     del code_bits
     words = words_to_torch(codes, device if device is not None else "cpu")
@@ -271,21 +277,50 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
     return msc.gather(1, sel), mid.gather(1, sel)
 
 
+def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
+                qbits: torch.Tensor, limit: int, chunk: int,
+                code_bits: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The running top-k loop of the chunked scan, shared by
+    :func:`scan_chunked` and the sharded packed step
+    (``parallel/sharded.scan_route_step_fn_packed``): ``rows`` (int8 bits
+    [n, B], or int32 words [n, G, W] when ``code_bits`` > 0, unpacked one
+    block at a time) go through :func:`scan_chunk_merge` in ``chunk``-row
+    blocks.  Returns the carry ``(part int32 [Q, k], row int32 [Q, k])``,
+    ``k = min(limit, chunk, n)``, dead entries ``(_DEAD, -1)``.
+
+    The tail block is the rows that are left.  Only when those are fewer
+    than ``k`` (the block top-k needs ``k`` columns) does it start at
+    ``n - chunk`` and re-read scanned rows, which are masked DEAD so every
+    id appears at most once."""
+    n = popc.shape[0]
+    q = qbits.shape[0]
+    k = min(limit, chunk, n)
+    dev = popc.device
+    carry = (torch.full((q, k), _DEAD, dtype=torch.int32, device=dev),
+             torch.full((q, k), -1, dtype=torch.int32, device=dev))
+    for start in range(0, n, chunk):
+        start_c = start if n - start >= k else n - chunk
+        sl = slice(start_c, min(start_c + chunk, n))
+        bits_c = unpack_bits_device(rows[sl], code_bits) if code_bits > 0 \
+            else rows[sl]
+        carry = scan_chunk_merge(qbits, bits_c, popc[sl], dead[sl], start,
+                                 start_c, carry)
+        del bits_c            # the unpack scratch goes before the next step
+    return carry
+
+
 def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
                  tombstones: torch.Tensor, limit: int, chunk: int = 1 << 19,
                  anchor: int = 0, margin: int = 0, floor: int = 0,
                  code_bits: int = 0) -> RouteResult:
     """:func:`scan` with the corpus processed in ``chunk``-row blocks and a
-    running top-L merge — the [Q, N] rank intermediate becomes [Q, chunk],
-    so memory stays flat as N grows.
+    running top-L merge (:func:`scan_chunks`) — the [Q, N] rank intermediate
+    becomes [Q, chunk], so memory stays flat as N grows.
 
     With a :class:`PackedScanState` (pass ``code_bits``) each chunk's words
     are unpacked on the device right before the bit product; the packed
-    words are what stays resident.
-
-    The tail block starts at ``n - chunk`` and re-reads already-scanned
-    rows; those duplicates are masked DEAD so every id appears at most
-    once.  The merge orders by (score, id), matching :func:`scan`.
+    words are what stays resident.  The merge orders by (score, id),
+    matching :func:`scan`.
     """
     packed = isinstance(state, PackedScanState)
     if packed and code_bits <= 0:
@@ -295,17 +330,7 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
         st = ScanState(unpack_bits_device(state.words, code_bits),
                        state.popc) if packed else state
         return scan(st, qbits, tombstones, limit, anchor, margin, floor)
-    q = qbits.shape[0]
-    k = min(limit, chunk, n)
-    dev = state.popc.device
-    carry = (torch.full((q, k), _DEAD, dtype=torch.int32, device=dev),
-             torch.full((q, k), -1, dtype=torch.int32, device=dev))
-    for start in range(0, n, chunk):
-        start_c = min(start, n - chunk)
-        sl = slice(start_c, start_c + chunk)
-        bits_c = unpack_bits_device(state.words[sl], code_bits) if packed \
-            else state.bits[sl]
-        carry = scan_chunk_merge(qbits, bits_c, state.popc[sl],
-                                 tombstones[sl], start, start_c, carry)
-        del bits_c            # the unpack scratch goes before the next step
-    return _finish(*carry, qbits, n, anchor, margin, floor, k)
+    carry = scan_chunks(state.words if packed else state.bits, state.popc,
+                        tombstones, qbits, limit, chunk,
+                        code_bits if packed else 0)
+    return _finish(*carry, qbits, n, anchor, margin, floor, carry[0].shape[1])

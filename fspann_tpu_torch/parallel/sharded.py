@@ -1,0 +1,786 @@
+"""Corpus-sharded index (SURVEY.md §7 step 7), port of
+``fspann_tpu/parallel/sharded.py``.
+
+The reference is a single JVM; its only scale-out analogue is N independent
+RocksDB shards (``common/ShardedMetadataManager.java``).  Here the *corpus*
+(the rows of the routing arrays) is cut into ``n`` equal row ranges, one per
+shard:
+
+* each shard builds partitions over its own rows (sorts are local, because
+  partition blocks never span shards),
+* queries are shared; each shard routes (and, in the plaintext mode,
+  refines) against its own rows and produces a local top-K,
+* one merge over the shards' blocks yields the global top-K.  The merged
+  payload is ``n * Q * K`` ids and scores — tiny next to the sharded state.
+
+**The mesh on one card.**  The JAX package places each shard on its own
+device of a ``jax.sharding.Mesh``.  The port serves from ONE torch device:
+a :class:`Mesh` is a shard count and that device, every array is ONE
+resident tensor whose leading axis holds the shards' row ranges back to back
+(``bits [rows * n, B]``, ``words``, ``popc``, ``tombs``, ``point_codes``,
+``base``), and a shard is a view of its range, never a copy.  The shards run
+one after another on the device's stream, so ``n`` shards cost ``n`` times
+the launches of one; the per-shard tables are stacked ``[n, G, P, ...]`` as
+in the JAX package, which keeps the checkpoint and the table layout one.
+
+The merge keeps its configured names (``runtime.mesh_merge``): ``"ici"`` is
+the merge ON THE DEVICE (the JAX package gathers over the chip interconnect
+first; on one card the blocks are already there), ``"host"`` copies the
+per-shard blocks to the host and merges them there
+(:func:`host_merge_topl`).  Both give the same bits.
+
+This module implements the *plaintext/trusted-refine* serving mode (vectors
+resident next to their routing shard) and the route-only steps of the
+encrypted mode, which keeps refine on the host exactly as in the
+single-device path, with per-shard ciphertext arenas (the host side is
+shard-agnostic: candidate ids are global).
+
+Order contracts are the single-device modules' (``ops/routing``,
+``ops/hamming_scan``): ids and scores are int32 (pads INT32_MAX on the way
+to a merge, -1 after it), every (score, id) ranking runs on one int64 key.
+``approx=True`` (the TPU's ``approx_max_k``) has no counterpart and raises;
+the default is the exact top-L.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from .. import default_device
+from ..ops import coding, hamming_scan, partition, routing
+from ..ops.hamming_scan import _DEAD
+from ..ops.partition import PartitionTable
+from ..ops.routing import _LOW32, INT32_MAX
+from ..query.service import _HostCopy
+
+_UNPACK_CHUNK = 65_536        # rows unpacked at a time while building
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``n_shards`` row ranges of one corpus, all resident on ``device``."""
+
+    n_shards: int
+    device: torch.device
+
+
+def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
+    """``n_devices`` shards on ``device`` (default: the card when one is
+    present, as the port's other entry points; the tests pass ``"cpu"``).
+    With ``n_devices=None`` the count is the number of visible CUDA devices
+    for a CUDA ``device`` and 1 on the CPU; more shards than devices is the
+    normal case, since every shard lives on the one ``device``."""
+    device = torch.device(device) if device is not None else default_device()
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_devices <= 0:
+        raise ValueError("a mesh needs at least one shard")
+    return Mesh(int(n_devices), device)
+
+
+def resolve_scan_layout(mode, device_rows: int, bits_per_row: int,
+                        device=None):
+    """Map a scan-layout request to a concrete ``keep_bits`` value.
+
+    ``mode``: False (no scan state), True/"off" (unpacked int8 bit matrix),
+    "packed"/"on" (int32 words, 8× fewer resident bytes, per-chunk unpack
+    inside the scan), or "auto" (pack only when the unpacked matrix of the
+    ``device_rows`` rows that share ``device`` would not fit 60% of its free
+    memory; 4 GiB on the CPU, which reports no memory stats).
+    """
+    if mode in (False, None):
+        return False
+    if mode in (True, "off"):
+        return True
+    if mode in ("packed", "on"):
+        return "packed"
+    if mode != "auto":
+        raise ValueError(f"unknown scan layout {mode!r}")
+    from ..utils.devmem import free_memory_budget
+    budget = free_memory_budget(6, 10, fallback=4 << 30, device=device)
+    return "packed" if device_rows * bits_per_row > budget else True
+
+
+def _assemble_dim1(arr) -> np.ndarray:
+    """[Q, k*n] per-shard blocks side by side → host numpy."""
+    if isinstance(arr, np.ndarray):
+        return arr
+    return arr.cpu().numpy()
+
+
+def host_merge_topl(ids, sc, limit: int):
+    """Exact host replica of the device scan merge: ascending 2-key
+    (score, id) order over the union of per-shard top-Ls, first ``limit``
+    kept, dead entries → id −1.  Packing both int32 keys into one int64
+    (score<<32 | id, both non-negative) makes a single argpartition+sort
+    reproduce the 2-key sort bit-exactly."""
+    pad32 = np.iinfo(np.int32).max
+    ids_np = _assemble_dim1(ids).astype(np.int64)
+    sc_np = _assemble_dim1(sc).astype(np.int64)
+    key = (sc_np << 32) | ids_np
+    r = min(limit, key.shape[1])
+    if r < key.shape[1]:
+        head = np.take_along_axis(
+            key, np.argpartition(key, r - 1, axis=1)[:, :r], axis=1)
+    else:
+        head = key
+    head = np.sort(head, axis=1)
+    sc_m = (head >> 32).astype(np.int32)
+    ids_m = (head & 0xFFFFFFFF).astype(np.int32)
+    return np.where(sc_m == pad32, -1, ids_m), sc_m
+
+
+def _merge_device(ids_blocks: list, sc_blocks: list, limit: int):
+    """The on-device merge (``merge="ici"``): the shards' (id, score)
+    blocks side by side, the first ``min(limit, width)`` in ascending
+    (score, id) order on one int64 key, INT32_MAX ids → -1."""
+    all_ids = torch.cat(ids_blocks, dim=1)
+    all_sc = torch.cat(sc_blocks, dim=1)
+    key = (all_sc.to(torch.int64) << 32) | all_ids.to(torch.int64)
+    r = min(limit, key.shape[1])
+    key = torch.topk(key, r, dim=1, largest=False, sorted=True).values
+    sc = (key >> 32).to(torch.int32)
+    ids = (key & _LOW32).to(torch.int32)
+    return torch.where(ids == INT32_MAX, torch.full_like(ids, -1), ids), sc
+
+
+class _Dispatched:
+    """A dispatched route: device→host copies in flight (pinned,
+    non-blocking), waited for by :meth:`get`.  With ``host_limit`` set the
+    copies are the per-shard blocks and :meth:`get` merges them on the
+    host."""
+
+    def __init__(self, ids, sc, host_limit: int | None = None):
+        self._copy = _HostCopy([ids, sc])
+        self._host_limit = host_limit
+
+    def get(self) -> tuple[np.ndarray, np.ndarray]:
+        ids, sc = self._copy.get()
+        if self._host_limit is not None:
+            return host_merge_topl(ids, sc, self._host_limit)
+        return ids, sc
+
+
+def _approx_refused(approx: bool) -> None:
+    if approx:
+        raise NotImplementedError("approx=True is the TPU's approx_max_k; "
+                                  "the port ranks exactly")
+
+
+class ShardedIndex:
+    """Plaintext corpus cut into shards with per-shard partition tables."""
+
+    def __init__(self, mesh: Mesh, bank: coding.GBank, block_size: int = 64,
+                 wide_keys: bool = False):
+        self.mesh = mesh
+        self.device = mesh.device
+        self.bank = bank
+        self._bank_dev = coding.bank_to(bank, self.device)
+        self.block_size = block_size
+        # full code-prefix partition order past the 63-bit key
+        # (ops/partition.build_partitions(wide=); runtime.wide_keys)
+        self.wide_keys = wide_keys
+        self.n_devices = mesh.n_shards
+        self.table: PartitionTable | None = None     # fields [n, G, P, ...]
+        self.base: torch.Tensor | None = None        # f32 [N_pad, d]
+        self.point_codes: torch.Tensor | None = None  # int32 [N_pad, G, W]
+        self.bits: torch.Tensor | None = None        # int8 [N_pad, B]
+        self.words: torch.Tensor | None = None       # int32 [N_pad, G, W]
+        #   packed scan words (8× fewer resident bytes; mutually exclusive
+        #   with `bits` — see resolve_scan_layout)
+        self.popc: torch.Tensor | None = None        # int32 [N_pad]
+        self.tombs: torch.Tensor | None = None       # bool [N_pad]
+        self.shard_rows = 0
+        self.n = 0
+        # scan-merge backend: "ici" = merge on the device, "host" = the
+        # per-shard top-Ls cross to the host and host_merge_topl does the
+        # identical exact merge
+        self.merge_backend = "ici"
+
+    def _init_tombs(self) -> None:
+        """Fresh all-false tombstone mask (one bool per padded row).
+        Deletions are a runtime input to every query step."""
+        self.tombs = torch.zeros(self.shard_rows * self.n_devices,
+                                 dtype=torch.bool, device=self.device)
+
+    def _set_tombstones(self, ids, value: bool) -> None:
+        """Set/clear tombstone bits for global row ids, in place on the
+        device mask.  O(changes), no rebuild."""
+        if self.tombs is None:
+            raise RuntimeError("build before tombstone updates")
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if not len(ids):
+            return
+        if (ids < 0).any() or (ids >= self.n).any():
+            raise ValueError("tombstone ids out of range")
+        self.tombs.index_fill_(0, torch.from_numpy(ids).to(self.device),
+                               value)
+
+    def mark_deleted(self, ids) -> None:
+        """Tombstone global row ids across the shards — the sharded
+        analogue of the single-device ``PartitionedIndex.mark_deleted``."""
+        self._set_tombstones(ids, True)
+
+    def mark_undeleted(self, ids) -> None:
+        """Clear tombstones (the sharded analogue of the single-device
+        undelete window — valid until the shard arenas compact/retire)."""
+        self._set_tombstones(ids, False)
+
+    # -- build ------------------------------------------------------------------
+
+    def _shard(self, arr: torch.Tensor, s: int) -> torch.Tensor:
+        """Shard ``s``'s row range of a resident array — a view."""
+        return arr[s * self.shard_rows:(s + 1) * self.shard_rows]
+
+    def _build_tables(self, codes: torch.Tensor) -> None:
+        """Per-shard partition tables from the resident codes
+        ([N_pad, G, W]), stacked under a leading shard axis."""
+        tables = []
+        for s in range(self.n_devices):
+            codes_s = self._shard(codes, s)
+            keys_s = coding.keys_from_codes(codes_s)
+            tables.append(partition.build_partitions(
+                keys_s.T.contiguous(), codes_s.permute(1, 0, 2).contiguous(),
+                self.block_size, wide=self.wide_keys))
+        self.table = PartitionTable(*(
+            None if fs[0] is None else torch.stack(fs)
+            for fs in zip(*tables)))
+
+    def build(self, base: np.ndarray, keep_base: bool = True,
+              keep_codes: bool = False, keep_bits: bool = False,
+              capacity: int | None = None) -> None:
+        """Pad to the shard count, encode + build per-shard partitions.
+
+        Layout: every array's leading-N axis is cut into the shards' row
+        ranges; group/partition axes stay local, so the build sort and all
+        query gathers are shard-local (nothing crosses shards until the
+        final merge).
+
+        ``keep_base=False`` drops the plaintext corpus from the device after
+        the routing tables are built — the ENCRYPTED serving mode: the
+        device holds only LSH routing state (codes/keys/partitions, no
+        vector content), exactly like the single-device index; refine
+        happens on the host against the shard-aligned ciphertext stores.
+
+        ``keep_codes=True`` additionally keeps each shard's per-point packed
+        codes on the device for the full-code rerank stage (G*W words/point).
+
+        ``capacity`` reserves row headroom beyond ``len(base)``: the pad
+        region (masked at query time) doubles as live-insert capacity for
+        :meth:`append_scan_rows`.
+        """
+        n = len(base)
+        nd = self.n_devices
+        rows = -(-max(n, capacity or 0) // nd)
+        pad = rows * nd - n
+        if pad:
+            # pad with copies of the last row; padded row ids are masked out
+            base = np.concatenate([base, np.repeat(base[-1:], pad, 0)])
+        self.n = n
+        self.shard_rows = rows
+        base_dev = torch.from_numpy(
+            np.ascontiguousarray(base, np.float32)).to(self.device)
+
+        bank = self._bank_dev
+        codes_dev = torch.empty((rows * nd, bank.g, bank.code_words),
+                                dtype=torch.int32, device=self.device)
+        for s in range(nd):
+            codes_s, _ = coding.encode(self._shard(base_dev, s), bank)
+            self._shard(codes_dev, s).copy_(codes_s)
+        self._build_tables(codes_dev)
+        self._init_tombs()
+        self.point_codes = codes_dev if keep_codes else None
+        self.base = base_dev if keep_base else None
+        self._set_scan_arrays(codes_dev, keep_bits)
+
+    def build_stream(self, chunks, n_total: int, keep_codes: bool = False,
+                     keep_bits: bool = False,
+                     capacity: int | None = None) -> int:
+        """Streaming build: consume an iterator of [b, d] f32 chunks and
+        NEVER materialize the corpus (reference ingestion is a streaming
+        loop, ForwardSecureANNSystem.java:438-479; the one-shot ``build``
+        pads and uploads the whole corpus).
+
+        Each chunk is sliced at shard-row boundaries, shipped to the device
+        and encoded there (device-consistent with query-time encoding —
+        bit-identical codes), and the raw slice is dropped; host peak memory
+        is one chunk, device peak is the codes.  The codes land in their
+        shard's range of the one resident array and the per-shard partition
+        build runs exactly like the one-shot path.
+        """
+        nd = self.n_devices
+        rows = -(-max(n_total, capacity or 0) // nd)
+        self.n = n_total
+        self.shard_rows = rows
+        bank = self._bank_dev
+        # zero rows past the stream's end: the tail shard's pad, masked at
+        # query time (rows >= n)
+        codes_dev = torch.zeros((rows * nd, bank.g, bank.code_words),
+                                dtype=torch.int32, device=self.device)
+        pos = 0
+        for c in chunks:
+            c = np.ascontiguousarray(c, np.float32)
+            o = 0
+            while o < len(c):
+                s = (pos + o) // rows
+                if s >= nd:
+                    raise ValueError(
+                        f"stream longer than n_total={n_total}")
+                take = min(len(c) - o, (s + 1) * rows - (pos + o))
+                dev_chunk = torch.from_numpy(c[o:o + take]).to(self.device)
+                codes_s, _ = coding.encode(dev_chunk, bank)
+                hamming_scan.update_rows(codes_dev, codes_s, pos + o)
+                o += take
+            pos += len(c)
+        if pos != n_total:
+            raise ValueError(f"stream provided {pos} rows, "
+                             f"expected n_total={n_total}")
+        self._build_tables(codes_dev)
+        self._init_tombs()
+        self.base = None
+        self.point_codes = codes_dev if keep_codes else None
+        self._set_scan_arrays(codes_dev, keep_bits)
+        return pos
+
+    def _set_scan_arrays(self, codes_global: torch.Tensor, keep_bits) -> None:
+        """Materialize the scan state from the resident packed codes in the
+        requested layout: True = unpacked int8 bit matrix (built block by
+        block into one preallocated tensor), "packed" = keep the int32
+        words, False = none.  Popcounts come from the words (pad bits are
+        zero by the packers' contract, ops/coding.py pack_codes)."""
+        self.bits = self.words = self.popc = None
+        if not keep_bits:
+            return
+        self.popc = hamming_scan._popcounts(codes_global, _UNPACK_CHUNK)
+        if keep_bits == "packed":
+            self.words = codes_global
+            return
+        cb = self.bank.code_bits
+        n_pad = codes_global.shape[0]
+        self.bits = torch.empty((n_pad, self.bank.g * cb), dtype=torch.int8,
+                                device=self.device)
+        for lo in range(0, n_pad, _UNPACK_CHUNK):
+            self.bits[lo:lo + _UNPACK_CHUNK] = hamming_scan.unpack_bits_device(
+                codes_global[lo:lo + _UNPACK_CHUNK], cb)
+
+    # -- checkpoint / restore ----------------------------------------------------
+
+    def save_state(self, path: str) -> None:
+        """Persist the routing state: per-point packed codes + bank +
+        geometry.  The sharded analogue of the single-device table
+        checkpoint (index/service.save_table): codes are the generator of
+        every routing structure (tables/bits rebuild deterministically), so
+        the checkpoint is N·G·W words instead of all derived state.
+
+        The file holds the JAX package's keys and, beside them, ``alpha``:
+        the port cannot regenerate a bank's projections from its seed when
+        the bank was carried across from the JAX package."""
+        codes = self.point_codes if self.point_codes is not None \
+            else self.words
+        if codes is None and self.bits is None:
+            raise RuntimeError("nothing to save: build with keep_codes or "
+                               "keep_bits first")
+        if codes is not None:
+            codes_np = coding.words_to_numpy(codes)
+        else:
+            # scan-only build: repack the bit matrix (lossless)
+            bits = self.bits.cpu().numpy().view(np.uint8)    # [N_pad, B]
+            g, cb = self.bank.g, self.bank.code_bits
+            w = self.bank.code_words
+            by = np.packbits(
+                np.pad(bits.reshape(len(bits), g, cb),
+                       ((0, 0), (0, 0), (0, w * 32 - cb))), axis=-1)
+            codes_np = by.view(">u4").astype(np.uint32).reshape(
+                len(bits), g, w)
+        tmp = path + ".tmp"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(tmp, codes=codes_np, n=self.n, shard_rows=self.shard_rows,
+                 ndev=self.n_devices, block=self.block_size,
+                 wide=self.wide_keys,
+                 omega=np.asarray(self.bank.omega), r=np.asarray(self.bank.r),
+                 m=self.bank.m, lam=self.bank.lam, tables=self.bank.tables,
+                 divisions=self.bank.divisions, seed=self.bank.seed,
+                 dim=self.bank.d, alpha=np.asarray(self.bank.alpha))
+        os.replace(tmp + ".npz", path)
+
+    @classmethod
+    def restore_state(cls, path: str, mesh: Mesh,
+                      keep_codes: bool = False, keep_bits: bool = True
+                      ) -> "ShardedIndex":
+        """Rebuild a ShardedIndex from :meth:`save_state` — the codes ship
+        straight to the device (no re-encode, no plaintext) and tables/bits
+        rebuild per shard.  Fails if the mesh size disagrees with the
+        checkpoint's shard geometry, or if the file holds no ``alpha`` (a
+        checkpoint written by the JAX package: its projections come from a
+        generator the port does not have)."""
+        with np.load(path) as z:
+            nd = int(z["ndev"])
+            if mesh.n_shards != nd:
+                raise ValueError(f"checkpoint is for {nd} devices, mesh has "
+                                 f"{mesh.n_shards}")
+            if "alpha" not in z.files:
+                raise ValueError(f"{path} holds no alpha; carry a JAX bank "
+                                 f"across with api.convert.bank_from_jax")
+            bank = coding.GBank(
+                z["alpha"].astype(np.float32), z["r"].astype(np.float32),
+                z["omega"].astype(np.float32), int(z["m"]), int(z["lam"]),
+                int(z["tables"]), int(z["divisions"]), int(z["seed"]))
+            idx = cls(mesh, bank, block_size=int(z["block"]),
+                      wide_keys=bool(z["wide"]) if "wide" in z.files
+                      else False)
+            idx.n = int(z["n"])
+            idx.shard_rows = int(z["shard_rows"])
+            codes_global = coding.words_to_torch(
+                z["codes"].astype(np.uint32), mesh.device)
+        idx._build_tables(codes_global)
+        idx._init_tombs()
+        idx.point_codes = codes_global if keep_codes else None
+        idx._set_scan_arrays(codes_global, keep_bits)
+        return idx
+
+    # -- live insert (scan mode) -------------------------------------------------
+
+    def append_scan_rows(self, vecs: np.ndarray) -> np.ndarray:
+        """Live insert (scan mode) — the sharded analogue of the
+        single-device ``PartitionedIndex.append_rows`` (index/service.py):
+        encode the new rows on the device, write them IN PLACE into their
+        shard's range of the resident scan state
+        (``hamming_scan.update_rows``: the tensors keep their storage), and
+        bump ``n`` — the scan step reads the live row count at every call,
+        so appended rows are searchable immediately.
+
+        Capacity is the pad region reserved by ``build(capacity=...)`` /
+        ``build_stream(capacity=...)``; appending past it raises.  Returns
+        the assigned global row ids (the next ordinals — range placement
+        demands contiguity)."""
+        packed = self.words is not None
+        if self.bits is None and not packed:
+            raise RuntimeError("mesh live insert requires "
+                               "build(keep_bits=True) (routing_mode='scan')")
+        vecs = np.ascontiguousarray(vecs, np.float32)
+        b = len(vecs)
+        nd, rows = self.n_devices, self.shard_rows
+        if self.n + b > rows * nd:
+            raise RuntimeError(
+                f"mesh capacity exhausted ({rows * nd} rows, {self.n} "
+                "live) — rebuild with capacity headroom")
+        cb = self.bank.code_bits
+        pos, o = self.n, 0
+        while o < b:
+            s = (pos + o) // rows
+            off = (pos + o) - s * rows
+            take = min(b - o, rows - off)
+            chunk = torch.from_numpy(vecs[o:o + take]).to(self.device)
+            codes_s, _ = coding.encode(chunk, self._bank_dev)
+            if packed:
+                hamming_scan.update_rows(self.words, codes_s, pos + o)
+            else:
+                hamming_scan.update_rows(
+                    self.bits, hamming_scan.unpack_bits_device(codes_s, cb),
+                    pos + o)
+            hamming_scan.update_rows(
+                self.popc, hamming_scan._popcounts(codes_s, _UNPACK_CHUNK),
+                pos + o)
+            o += take
+        # kept packed codes (rerank path) don't cover the appended rows —
+        # drop them so save_state repacks from the (current) scan state
+        # instead of checkpointing a stale code array
+        self.point_codes = None
+        ids = np.arange(self.n, self.n + b, dtype=np.int64)
+        self.n += b
+        return ids
+
+    # -- query ------------------------------------------------------------------
+
+    def _shard_cap(self, probe_shards: int | None) -> int:
+        return self.n_devices if probe_shards is None \
+            else max(1, min(probe_shards, self.n_devices))
+
+    def _dead_rows(self, s: int, tombs_local: torch.Tensor, n_live: int,
+                   shard_cap: int) -> torch.Tensor:
+        """bool [rows]: shard ``s``'s tombstones, every row at or past the
+        live count, and every row of an unprobed shard."""
+        rows = self.shard_rows
+        live = min(max(n_live - s * rows, 0), rows) if s < shard_cap else 0
+        dead = tombs_local.clone()
+        dead[live:] = True
+        return dead
+
+    def _queries(self, queries) -> torch.Tensor:
+        if isinstance(queries, torch.Tensor):
+            return queries.to(device=self.device, dtype=torch.float32)
+        return torch.from_numpy(
+            np.ascontiguousarray(queries, np.float32)).to(self.device)
+
+    def _shard_table(self, table_stacked: PartitionTable, s: int
+                     ) -> PartitionTable:
+        return PartitionTable(*(None if f is None else f[s]
+                                for f in table_stacked))
+
+    def query_step_fn(self, probes: int, refinement_limit: int, k: int,
+                      probe_shards: int | None = None):
+        """Return the sharded query step (route → local refine → top-k
+        merge over the shards): ``step(table, base, tombs, queries)``.
+
+        ``probe_shards`` restricts results to the first N shards (reference
+        ``-Dprobe.shards``, ForwardSecureANNSystem.java:1598-1617): the
+        unprobed shards' rows are masked out of the merge.
+
+        Ties in distance keep the lower candidate position (stable sorts),
+        the order of the JAX package's ``lax.top_k``."""
+        bank = self._bank_dev
+        rows = self.shard_rows
+        shard_cap = self._shard_cap(probe_shards)
+
+        def step(table_stacked, base, tombs, queries):
+            qcodes, qkeys = coding.encode(queries, bank)
+            ids_blocks, d2_blocks = [], []
+            for s in range(self.n_devices):
+                tomb = self._dead_rows(s, self._shard(tombs, s), self.n,
+                                       shard_cap)
+                routed = routing.route(self._shard_table(table_stacked, s),
+                                       qcodes, qkeys, tomb, probes,
+                                       refinement_limit)
+                cand = routed.ids                                # local rows
+                safe = torch.clamp(cand, min=0).to(torch.int64)
+                cand_vecs = self._shard(base, s)[safe]           # [Q, R, d]
+                diff = cand_vecs - queries[:, None, :]
+                d2 = (diff * diff).sum(dim=-1)
+                d2 = torch.where(cand >= 0, d2,
+                                 torch.full_like(d2, 3.4e38))
+                kk = min(k, cand.shape[-1])
+                d2, idx = torch.sort(d2, dim=-1, stable=True)
+                d2, idx = d2[:, :kk], idx[:, :kk]
+                local_ids = cand.gather(-1, idx)
+                ids_blocks.append(torch.where(
+                    local_ids >= 0, local_ids + s * rows,
+                    torch.full_like(local_ids, -1)))
+                d2_blocks.append(d2)
+            # ---- merge of the shards' tiny top-K blocks ----
+            all_ids = torch.cat(ids_blocks, dim=1)               # [Q, n*K]
+            all_d2 = torch.cat(d2_blocks, dim=1)
+            md2, midx = torch.sort(all_d2, dim=-1, stable=True)
+            md2, midx = md2[:, :k], midx[:, :k]
+            out_ids = all_ids.gather(-1, midx)
+            dist = torch.sqrt(torch.clamp(md2, min=0.0))
+            dist = torch.where(out_ids >= 0, dist,
+                               torch.full_like(dist, float("inf")))
+            return out_ids, dist
+
+        return step
+
+    def route_step_fn(self, probes: int, refinement_limit: int,
+                      probe_shards: int | None = None,
+                      rerank_limit: int = 0):
+        """Route-ONLY sharded step for encrypted serving: per-shard
+        multi-probe routing, global-id conversion, merge of the per-shard
+        ranked (id, score) blocks by Hamming score on the device:
+        ``step(table, tombs, queries[, point_codes])``.  No vector content
+        touches the device — the candidate ids go back to the host for
+        decrypt+refine against the shard-aligned ciphertext arenas.
+
+        ``rerank_limit > 0`` (needs build(keep_codes=True)) re-scores each
+        shard's routed set by exact full-code Hamming
+        (ops/routing.route_rerank: one ``code_hamming`` launch per shard and
+        batch) and truncates LOCALLY before the merge — the global top-L by
+        fine score is contained in the union of per-shard top-Ls, so the
+        merge is exact while its payload shrinks from refinement_limit to
+        rerank_limit per shard."""
+        bank = self._bank_dev
+        rows = self.shard_rows
+        limit = refinement_limit
+        shard_cap = self._shard_cap(probe_shards)
+        use_rerank = rerank_limit > 0
+        if use_rerank and self.point_codes is None:
+            raise RuntimeError("rerank requires build(keep_codes=True)")
+
+        def step(table_stacked, tombs, queries, *maybe_codes):
+            qcodes, qkeys = coding.encode(queries, bank)
+            ids_blocks, sc_blocks = [], []
+            for s in range(self.n_devices):
+                table = self._shard_table(table_stacked, s)
+                dead_rows = self._dead_rows(s, self._shard(tombs, s), self.n,
+                                            shard_cap)
+                if use_rerank:
+                    routed = routing.route_rerank(
+                        table, qcodes, qkeys, dead_rows,
+                        self._shard(maybe_codes[0], s), probes, rerank_limit)
+                else:
+                    routed = routing.route(table, qcodes, qkeys, dead_rows,
+                                           probes, limit)
+                live = routed.ids >= 0
+                pad = torch.full_like(routed.ids, INT32_MAX)
+                ids_blocks.append(torch.where(live, routed.ids + s * rows,
+                                              pad))
+                sc_blocks.append(torch.where(live, routed.scores, pad))
+            return _merge_device(ids_blocks, sc_blocks,
+                                 rerank_limit if use_rerank else limit)
+
+        return step
+
+    def _scan_blocks(self, local_topl, qpopc: torch.Tensor, limit: int,
+                     merge: str):
+        """Run ``local_topl(s)`` → (rank int32 [Q, k], row int32 [Q, k],
+        dead = (_DEAD, -1)) over the shards and merge: global ids, fine
+        scores (rank + the query's popcount), INT32_MAX pads;
+        ``merge="host"`` returns the blocks side by side for
+        :func:`host_merge_topl`."""
+        rows = self.shard_rows
+        ids_blocks, sc_blocks = [], []
+        for s in range(self.n_devices):
+            best_sc, best_id = local_topl(s)
+            live = best_sc < _DEAD
+            pad = torch.full_like(best_sc, INT32_MAX)
+            ids_blocks.append(torch.where(live, best_id + s * rows, pad))
+            sc_blocks.append(torch.where(live, best_sc + qpopc[:, None], pad))
+        if merge == "host":
+            return torch.cat(ids_blocks, dim=1), torch.cat(sc_blocks, dim=1)
+        return _merge_device(ids_blocks, sc_blocks, limit)
+
+    def _no_live_row(self, q: int, k: int):
+        """The local top-k of a shard that is not scanned: all dead."""
+        return (torch.full((q, k), _DEAD, dtype=torch.int32,
+                           device=self.device),
+                torch.full((q, k), -1, dtype=torch.int32,
+                           device=self.device))
+
+    def _query_bits(self, queries: torch.Tensor):
+        """The queries' code bits (int8 [Q, B]) and popcounts, encoded ON
+        THE DEVICE (unlike the single-device scan point, which encodes on
+        the host)."""
+        qcodes, _ = coding.encode(queries, self._bank_dev)
+        qbits = hamming_scan.unpack_bits_device(qcodes, self.bank.code_bits)
+        return qbits, qbits.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+    def scan_route_step_fn(self, limit: int, probe_shards: int | None = None,
+                           approx: bool = False, merge: str = "ici"):
+        """Hamming scan over the shards: per-shard int8 bit product + local
+        top-L, then the exact merge by fine score (global top-L ⊆ union of
+        per-shard top-Ls): ``step(bits, popc, tombs, queries, n_live)``.
+        The merged payload is L ids+scores per shard — no vector content,
+        no codes.
+
+        ``merge="host"`` returns the per-shard top-Ls side by side ([Q,
+        n*k]) and :func:`host_merge_topl` does the same exact 2-key merge on
+        the host — bit-identical results.  A shard with no live row (past
+        ``n_live``, or unprobed) is not scanned: its block is all pads."""
+        _approx_refused(approx)
+        rows = self.shard_rows
+        shard_cap = self._shard_cap(probe_shards)
+        k = min(limit, rows)
+
+        def step(bits, popc, tombs, queries, n_live):
+            qbits, qpopc = self._query_bits(queries)
+            q = qbits.shape[0]
+
+            def local_topl(s):
+                if s >= shard_cap or s * rows >= n_live:
+                    return self._no_live_row(q, k)
+                part = hamming_scan._bit_dots(qbits, self._shard(bits, s)) \
+                    .mul_(-2).add_(self._shard(popc, s))
+                dead = self._dead_rows(s, self._shard(tombs, s), n_live,
+                                       shard_cap)
+                part.masked_fill_(dead[None, :], _DEAD)
+                return hamming_scan._rank_topk(part, k)
+
+            return self._scan_blocks(local_topl, qpopc, limit, merge)
+
+        return step
+
+    def scan_route_step_fn_packed(self, limit: int,
+                                  probe_shards: int | None = None,
+                                  approx: bool = False, chunk: int = 1 << 19,
+                                  merge: str = "ici"):
+        """Packed-layout sharded scan: each shard runs the chunked
+        running-top-L loop of the single-device scan
+        (``hamming_scan.scan_chunks``) over its view of the words — slice
+        ``chunk`` packed rows, unpack on the device, bit product, 2-key
+        merge — so only [chunk, B] of unpacked scratch exists at a time
+        (the resident state is the 8×-smaller word matrix).  Merge identical
+        to the unpacked step."""
+        _approx_refused(approx)
+        rows = self.shard_rows
+        shard_cap = self._shard_cap(probe_shards)
+        cb = self.bank.code_bits
+        chunk = min(chunk, rows)
+        k = min(limit, chunk)
+
+        def step(words, popc, tombs, queries, n_live):
+            qbits, qpopc = self._query_bits(queries)
+            q = qbits.shape[0]
+
+            def local_topl(s):
+                if s >= shard_cap or s * rows >= n_live:
+                    return self._no_live_row(q, k)
+                dead = self._dead_rows(s, self._shard(tombs, s), n_live,
+                                       shard_cap)
+                return hamming_scan.scan_chunks(
+                    self._shard(words, s), self._shard(popc, s), dead, qbits,
+                    limit, chunk, cb)
+
+            return self._scan_blocks(local_topl, qpopc, limit, merge)
+
+        return step
+
+    def scan_route_dispatch(self, queries: np.ndarray, limit: int = 2048,
+                            probe_shards: int | None = None,
+                            approx: bool = False) -> _Dispatched:
+        """Non-blocking stage-A dispatch: the step is queued on the device
+        and the result's copy to pinned host memory started;
+        ``.get()`` waits for it (and, with ``merge_backend="host"``, merges
+        the shards' blocks on the host)."""
+        packed = self.words is not None
+        if self.bits is None and not packed:
+            raise RuntimeError("scan requires build(keep_bits=True)")
+        mk = self.scan_route_step_fn_packed if packed \
+            else self.scan_route_step_fn
+        step = mk(limit, probe_shards, approx, merge=self.merge_backend)
+        ids, sc = step(self.words if packed else self.bits, self.popc,
+                       self.tombs, self._queries(queries), self.n)
+        return _Dispatched(ids, sc, limit if self.merge_backend == "host"
+                           else None)
+
+    def scan_route(self, queries: np.ndarray, limit: int = 2048,
+                   probe_shards: int | None = None, approx: bool = False):
+        """Stage A via the sharded Hamming scan (needs build(keep_bits=True)
+        or the packed layout, keep_bits="packed")."""
+        return self.scan_route_dispatch(queries, limit, probe_shards,
+                                        approx).get()
+
+    def route_dispatch(self, queries: np.ndarray, probes: int = 5,
+                       refinement_limit: int = 2048,
+                       probe_shards: int | None = None,
+                       rerank_limit: int = 0) -> _Dispatched:
+        """Non-blocking probe-route dispatch (host copy started)."""
+        step = self.route_step_fn(probes, refinement_limit, probe_shards,
+                                  rerank_limit)
+        args = (self.table, self.tombs, self._queries(queries))
+        if rerank_limit > 0:
+            args += (self.point_codes,)
+        return _Dispatched(*step(*args))
+
+    def route(self, queries: np.ndarray, probes: int = 5,
+              refinement_limit: int = 2048,
+              probe_shards: int | None = None,
+              rerank_limit: int = 0):
+        """Candidate generation across the shards (encrypted serving stage
+        A): ranked global candidate ids [Q, R] (-1 pad) + Hamming scores."""
+        return self.route_dispatch(queries, probes, refinement_limit,
+                                   probe_shards, rerank_limit).get()
+
+    def query(self, queries: np.ndarray, probes: int = 5,
+              refinement_limit: int = 2048, k: int = 10,
+              probe_shards: int | None = None):
+        if self.base is None:
+            raise RuntimeError(
+                "plaintext refine unavailable: index built with "
+                "keep_base=False (encrypted mode) — use route() + host "
+                "decrypt/refine")
+        step = self.query_step_fn(probes, refinement_limit, k, probe_shards)
+        ids, dist = step(self.table, self.base, self.tombs,
+                         self._queries(queries))
+        return ids.cpu().numpy(), dist.cpu().numpy()

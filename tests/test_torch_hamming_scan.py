@@ -261,3 +261,144 @@ def test_scan_cuda_matches_cpu(nq):
                  tomb.cuda(), 300, anchor=10, margin=40, **kw)
         for f in FIELDS:
             assert torch.equal(getattr(cpu, f), getattr(dev, f).cpu()), f
+
+
+def _random_words(rng, n, g, w, cb):
+    """uint32 words [n, g, w] holding ``cb`` code bits a group, pad bits
+    zero (the packers' contract)."""
+    codes = rng.integers(0, 1 << 32, (n, g, w), dtype=np.uint64) \
+        .astype(np.uint32)
+    pad = w * 32 - cb
+    if pad:
+        codes[..., -1] &= np.uint32((0xFFFFFFFF << pad) & 0xFFFFFFFF)
+    return codes
+
+
+@pytest.mark.parametrize("w,cb", [(1, 20), (1, 32), (3, 72), (4, 100),
+                                  (4, 128)])
+@pytest.mark.parametrize("dtype", ["int32", "int64-unsigned",
+                                   "int64-signed"])
+def test_unpack_device_matches_numpy_for_every_word_dtype(rng, w, cb, dtype):
+    """The byte-wide unpack against ``unpack_bits_numpy``, with and without
+    pad bits, for int32 bit patterns and for int64 words holding either the
+    unsigned value or the sign-extended pattern."""
+    codes = _random_words(rng, 70, 3, w, cb)
+    words = {"int32": torch.from_numpy(codes.view(np.int32)),
+             "int64-unsigned": torch.from_numpy(codes.astype(np.int64)),
+             "int64-signed": torch.from_numpy(
+                 codes.view(np.int32).astype(np.int64))}[dtype]
+    want = ths.unpack_bits_numpy(codes, cb)
+    got = ths.unpack_bits_device(words, cb)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ths._popcounts(words, 32).numpy(),
+                                  want.sum(axis=1, dtype=np.int32))
+    # a leading batch axis, as the query codes of a step have none but a
+    # stacked caller may
+    np.testing.assert_array_equal(
+        ths.unpack_bits_device(words[None], cb).numpy(), want[None])
+
+
+CHUNK, LIMIT = 128, 60
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bits", "words"])
+@pytest.mark.parametrize("tail", [0, 1, LIMIT - 1, LIMIT, CHUNK - 1])
+def test_scan_chunked_ragged_tail_matches_scan_and_jax(rng, tail, packed):
+    """``n % chunk`` at the edges of the tail rule: a tail of ``k`` rows or
+    more is scanned as it is, a shorter one re-reads from ``n - chunk``
+    with the overlap masked; every field equals the flat scan's and the JAX
+    chunked scan's (which always clamps)."""
+    jnp, jhs = _jax()
+    n = 3 * CHUNK + tail
+    codes, qbits, cb = _mk(rng, n=n, nq=5)
+    tomb = np.zeros(n, bool)
+    tomb[rng.integers(0, n, 40)] = True
+    tomb[n - 3:] = [True, False, True]          # dead rows inside the tail
+    kw = dict(anchor=10, margin=8)
+    q, tb = torch.from_numpy(qbits), torch.from_numpy(tomb)
+    flat = ths.scan(ths.build_scan_state(codes, cb), q, tb, LIMIT, **kw)
+    if packed:
+        got = ths.scan_chunked(ths.build_scan_state_packed(codes, cb), q, tb,
+                               LIMIT, chunk=CHUNK, code_bits=cb, **kw)
+        jstate = jhs.build_scan_state_packed(codes, cb)
+        jkw = dict(code_bits=cb)
+    else:
+        got = ths.scan_chunked(ths.build_scan_state(codes, cb), q, tb, LIMIT,
+                               chunk=CHUNK, **kw)
+        jstate, jkw = jhs.build_scan_state(codes, cb), {}
+    for f in FIELDS:
+        assert torch.equal(getattr(flat, f), getattr(got, f)), f
+    _assert_same(jhs.scan_chunked(jstate, jnp.asarray(qbits),
+                                  jnp.asarray(tomb), LIMIT, chunk=CHUNK,
+                                  approx=False, **kw, **jkw), got)
+
+
+def test_scan_chunks_reads_the_tail_once_when_it_can(rng, monkeypatch):
+    """The slices the loop hands to ``scan_chunk_merge``: no overlap when
+    the tail holds ``k`` rows, the clamped start when it does not."""
+    seen = []
+    real = ths.scan_chunk_merge
+
+    def spy(qbits, bits_c, popc_c, dead_c, start, start_c, carry):
+        seen.append((start, start_c, bits_c.shape[0]))
+        return real(qbits, bits_c, popc_c, dead_c, start, start_c, carry)
+
+    monkeypatch.setattr(ths, "scan_chunk_merge", spy)
+    for tail, want_last in ((LIMIT, (384, 384, LIMIT)),
+                            (LIMIT - 1, (384, 384 + LIMIT - 1 - CHUNK,
+                                         CHUNK))):
+        n = 3 * CHUNK + tail
+        codes, qbits, cb = _mk(rng, n=n, nq=2)
+        st = ths.build_scan_state(codes, cb)
+        seen.clear()
+        ths.scan_chunks(st.bits, st.popc, torch.zeros(n, dtype=torch.bool),
+                        torch.from_numpy(qbits), LIMIT, CHUNK)
+        assert seen[:3] == [(0, 0, CHUNK), (128, 128, CHUNK),
+                            (256, 256, CHUNK)]
+        assert seen[3] == want_last
+
+
+def test_unpack_scratch_is_one_byte_wide(rng):
+    """Everything the unpack makes at the size of its input is one byte
+    wide, and the packed chunked scan makes no int64 tensor of a chunk's
+    word count: recorded with a dispatch mode around the calls."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    self.made.append((str(func), t.dtype, t.numel()))
+            return out
+
+    g, w, cb, chunk = 4, 4, 128, 256
+    codes = _random_words(rng, 3 * chunk + 100, g, w, cb)
+    words = torch.from_numpy(codes.view(np.int32))[:chunk]
+    with Recorder() as rec:
+        bits = ths.unpack_bits_device(words, cb)
+    assert bits.shape == (chunk, g * cb)
+    n_words = chunk * g * w
+    big = [m for m in rec.made if m[2] >= n_words]
+    assert {m[2] for m in big} >= {n_words * 4, n_words * 32}, big
+    wide = [m for m in big if m[1].itemsize != 1]
+    assert not wide, f"operands wider than a byte: {wide}"
+
+    qbits = torch.from_numpy(ths.unpack_bits_numpy(codes[:3], cb))
+    state = ths.build_scan_state_packed(codes, cb)
+    with Recorder() as rec:
+        ths.scan_chunked(state, qbits, torch.zeros(len(codes),
+                                                   dtype=torch.bool), 50,
+                         chunk=chunk, code_bits=cb)
+    assert len(rec.made) > 20
+    wide = [m for m in rec.made if m[1] == torch.int64 and m[2] >= n_words]
+    assert not wide, f"int64 tensors of a chunk's size: {wide}"
+    wide = [m for m in rec.made if m[1].itemsize != 1
+            and m[2] >= n_words * 4]
+    assert not wide, f"byte-count tensors wider than a byte: {wide}"

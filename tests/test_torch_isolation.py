@@ -33,7 +33,8 @@ CARRIED = ["config.py", "types.py", "crypto/aesgcm.py", "crypto/keys.py",
            "utils/cache.py", "utils/metrics.py", "utils/profiler.py",
            "utils/storage_metrics.py", "api/system.py", "api/cli.py",
            "api/multidim.py", "query/decoy.py", "crypto/keyutils.py",
-           "utils/paths.py", "interfaces.py", "ops/native_scan.py"]
+           "utils/paths.py", "interfaces.py", "ops/native_scan.py",
+           "store/sharded_store.py"]
 
 # Modules that bind a C library: the library path constants and the build
 # step of ``_load`` differ; everything from ``lib = ctypes.CDLL(...)`` on
