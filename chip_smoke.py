@@ -80,7 +80,13 @@ Phases (any failure raises and exits non-zero):
      with ground truth from the kernel (recall@10 >= 0.98, ratio@100 <=
      1.01, final ids equal to phase 5's), ``insert_live``, ``delete``,
      ``rotate_and_migrate``, ``save_index`` and a fresh object's
-     ``restore_index`` serving the same results.
+     ``restore_index`` serving the same results;
+ 15. the five ``examples/torch_*.py`` as a user runs them (their default
+     sizes and device, the card), all at once as subprocesses: each exits 0
+     and prints its recall gate line (``mesh lifecycle OK`` for the mesh).
+Phase 5 also checks the bank against the JAX package's for the same seed
+(``JAX_BANK_FINGERPRINT``) and serves a second pass with the 24-bit id
+transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
 Each served path (phases 5, 8, 10, 12, 13 and 14) runs with the kernels' launch
 counts set to 0 just before it and read just after.  The last two lines of
 standard output are the kernels' JSON record and the device JSON line.
@@ -111,6 +117,11 @@ F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 N_SLICE = 1_000_000
 Q_SLICE = 1024
 INT32_MAX = 2 ** 31 - 1
+# sha1 (first 12 hex digits) of alpha [24, 64, 128] and the unit offsets
+# [24, 64] that the JAX package draws for seed 13 (its coding module's
+# _alpha_from_seed / _r_unit_from_seed, JAX 0.9.0 on the CPU): the port's
+# threefry bank must reproduce them bit for bit
+JAX_BANK_FINGERPRINT = "21921a2cc979"
 
 
 def log(msg: str) -> None:
@@ -368,6 +379,18 @@ def slice_cfg(**runtime):
             **runtime)).validate()
 
 
+def timed_pass(sys_, queries, gtm, base) -> tuple[float, float, object]:
+    """One ``run_queries`` pass: q/s, the mean route wait per query (ms)
+    and the aggregates."""
+    sys_.profiler.clear_rows()
+    t0 = time.perf_counter()
+    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
+    wall = time.perf_counter() - t0
+    rows = [r for r in sys_.profiler.rows if r.k == 10]
+    return (len(queries) / wall, sum(r.route_ms for r in rows) / len(rows),
+            agg)
+
+
 def serve(sys_, queries, k: int = 100):
     """ids [Q, k] and distances of ``queries`` through the query service:
     the path ``run_queries`` serves through, without the facade's query
@@ -393,7 +416,16 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     host-encoded codes and the scan route of every query."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth
+    from fspann_tpu_torch.ops import coding
 
+    pp = slice_cfg().paper
+    shape = (pp.tables * pp.divisions, pp.m, 128)
+    drawn = fingerprint(coding._alpha_from_seed(pp.seed, *shape),
+                        coding._r_unit_from_seed(pp.seed, *shape[:2]))
+    log(f"  bank drawn from seed {pp.seed} at {list(shape)}: alpha + unit "
+        f"offsets {drawn}, the JAX package's {JAX_BANK_FINGERPRINT}")
+    require(drawn == JAX_BANK_FINGERPRINT, "the threefry bank differs from "
+            "the JAX package's")
     sys_ = ForwardSecureANNSystem(slice_cfg(), os.path.join(work, "db"),
                                   128, query_batch=64)
     torch.cuda.reset_peak_memory_stats()
@@ -449,6 +481,19 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
     require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
     ref = serve(sys_, queries)
+    # the ranked ids cross to the host 24-bit packed by default on the card;
+    # one more pass with the packing off must serve the same results
+    os.environ["FSPANN_PACK24"] = "0"
+    try:
+        qps_off, route_off, _ = timed_pass(sys_, queries, gtm, base)
+        unpacked = serve(sys_, queries)
+    finally:
+        del os.environ["FSPANN_PACK24"]
+    require_same(unpacked, ref, "FSPANN_PACK24=0 vs the packed default")
+    log(f"  24-bit id transfer: on (default) {Q_SLICE / wall:.1f} q/s, route "
+        f"wait {sum(r.route_ms for r in rows) / nq:.3f} ms per query; off "
+        f"{qps_off:.1f} q/s, route wait {route_off:.3f} ms per query; every "
+        f"id and distance equal")
     idx = sys_.index
     routed = [idx.route_batch(*idx.encode_queries(queries[s:s + 64]))
               for s in range(0, Q_SLICE, 64)]
@@ -1547,6 +1592,41 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> dict:
     return counts
 
 
+# (script, the line its gate prints); a recall gate is the example's own
+EXAMPLES = [("torch_plaintext_ann.py", "recall@10: "),
+            ("torch_encrypted_e2e.py", "recall@10: "),
+            ("torch_cpu_only_serving.py", "recall@10: "),
+            ("torch_sharded_serving.py", "recall@10: "),
+            ("torch_mesh_serving.py", "mesh lifecycle OK")]
+
+
+def phase_examples() -> None:
+    """Phase 15: every example on the card, started together."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for script, gate in EXAMPLES:
+            procs.append((script, gate, subprocess.Popen(
+                [sys.executable, os.path.join(here, "examples", script)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env)))
+        for script, gate, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            took = time.perf_counter() - t0
+            lines = [ln for ln in out.splitlines() if ln.startswith(gate)]
+            require(proc.returncode == 0 and lines,
+                    f"phase 15 {script}: rc {proc.returncode}\n{out}\n{err}")
+            log(f"phase 15 {script}: exit 0 after {took:.1f} s, "
+                f"{lines[-1]}")
+    finally:
+        for _script, _gate, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1589,6 +1669,9 @@ def main() -> int:
         cli_counts = phase_cli(base, queries, work)
         shard_counts = phase_sharded(dev, base, queries, work, p5)
         mesh_counts = phase_distributed(dev, base, queries, work, p5, ref)
+        del base, queries, ref, p5
+        release_earlier_phases()
+        phase_examples()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = (scan_counts, probe_counts, life_counts, cli_counts,

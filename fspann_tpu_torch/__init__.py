@@ -24,9 +24,24 @@ __version__ = "0.1.0"
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a CUDA device is available, else ``cpu``.
+    """The device an entry point serves from when its caller names none:
+    the CUDA card.
 
-    The CPU answer exists for the CPU test suite, where every kernel
-    wrapper runs its plain torch version; the serving path on a GPU host
-    never falls back to it."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    There is no fallback: without a CUDA device this raises, so a host whose
+    CUDA is broken fails at once instead of serving from the CPU.  The CPU
+    is a choice the caller makes (``device="cpu"``, or ``--device cpu`` on
+    the command line), as the CPU test suite does; there every kernel
+    wrapper runs its plain torch version."""
+    return resolve_device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.  A
+    CUDA device on a host without one raises here, at construction, with
+    the way to ask for the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" (or "
+            "--device cpu on the command line) to run on the CPU")
+    return device

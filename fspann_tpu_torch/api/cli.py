@@ -46,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the end-of-run selective re-encryption")
     p.add_argument("--decoys", action="store_true",
                    help="interleave decoy queries (access-pattern cloak)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve from (default: the CUDA "
+                        "card; cpu by request)")
     return p
 
 
@@ -60,7 +63,8 @@ def main(argv=None) -> int:
     dim = queries.shape[1]
 
     system = ForwardSecureANNSystem(cfg, args.base_dir, dim,
-                                    query_batch=args.query_batch)
+                                    query_batch=args.query_batch,
+                                    device=args.device)
     try:
         base = None
         if args.query_only:
@@ -93,7 +97,8 @@ def main(argv=None) -> int:
             if base is None:
                 raise SystemExit("--gt AUTO requires --data")
             gtm = groundtruth.precompute(base, queries,
-                                         k=system.cfg.eval.max_k)
+                                         k=system.cfg.eval.max_k,
+                                         device=args.device)
 
         eval_queries, real_src = queries, None
         if args.decoys or cfg.cloak.enabled:

@@ -21,8 +21,9 @@ from .system import ForwardSecureANNSystem
 
 class MultiDimSystem:
     def __init__(self, cfg: SystemConfig, base_dir: str,
-                 query_batch: int = 64):
+                 query_batch: int = 64, device=None):
         self.cfg = cfg
+        self.device = device
         self.base_dir = base_dir
         self.query_batch = query_batch
         os.makedirs(base_dir, exist_ok=True)
@@ -41,7 +42,8 @@ class MultiDimSystem:
             # component can be left holding a throwaway keystore
             sys_ = ForwardSecureANNSystem(self.cfg, sub, dim,
                                           self.query_batch,
-                                          key_manager=self.km)
+                                          key_manager=self.km,
+                                          device=self.device)
             self._systems[dim] = sys_
         return sys_
 

@@ -44,11 +44,13 @@ from ..utils.storage_metrics import StorageMetrics
 class ForwardSecureANNSystem:
     def __init__(self, cfg: SystemConfig | str, base_dir: str, dim: int,
                  query_batch: int = 64,
-                 key_manager: KeyManager | None = None):
+                 key_manager: KeyManager | None = None, device=None):
         """``key_manager`` injects a shared keystore (MultiDimSystem: one
         keystore across per-dimension sub-systems, reference DimensionState
         wiring ForwardSecureANNSystem.java:360-375).  Every component below
-        captures the SAME instance at construction — no post-hoc swapping."""
+        captures the SAME instance at construction — no post-hoc swapping.
+        ``device`` is the torch device the index serves from: the CUDA card
+        unless the caller names another (``"cpu"``)."""
         if isinstance(cfg, str):
             cfg = load_config(cfg)
         self.cfg = cfg
@@ -67,7 +69,7 @@ class ForwardSecureANNSystem:
             RotationPolicy(cfg.keys.ops_threshold, cfg.keys.age_threshold_ms))
         self.index = PartitionedIndex(
             cfg, dim, bank_path=os.path.join(base_dir, "bank.npz"),
-            table_path=os.path.join(base_dir, "table.npz"))
+            table_path=os.path.join(base_dir, "table.npz"), device=device)
         self.tokens = QueryTokenFactory(self.index, self.km, dim)
         self.tracker = ReencryptionTracker()
         self.query_service = QueryService(self.index, self.store, self.km,

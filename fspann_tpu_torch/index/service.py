@@ -38,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..config import SystemConfig
 from ..ops import coding, hamming_scan, native_scan, partition, routing
 from ..ops.partition import PartitionTable
@@ -73,10 +73,10 @@ class PartitionedIndex:
         self.dim = dim
         self.bank_path = bank_path
         self.table_path = table_path
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = resolve_device(device)
         self.bank: coding.GBank | None = None
         self._bank_dev: coding.GBank | None = None   # lazy device copy
+        self._bank_cpu: coding.GBank | None = None   # lazy numpy copy
         self.frozen = False
         self.table: PartitionTable | None = None     # tensors on self.device
         # host (numpy) twins of the frozen table and of the probe-mode
@@ -133,15 +133,14 @@ class PartitionedIndex:
         if self._staged:
             raise RuntimeError("bank must be installed before staging rows")
         self.bank = bank
-        self._bank_dev = None
+        self._bank_cpu = self._bank_dev = None
         if self.bank_path:
             self._save_bank(self.bank_path)
 
     def _save_bank(self, path: str) -> None:
-        """Persist the bank with (omega, r) stats + hyperparams.  ``alpha``
-        is stored too: a bank carried across from the JAX package was not
-        drawn from this package's generator, so the seed alone would not
-        reproduce it."""
+        """Persist the bank with (omega, r) stats + hyperparams, and
+        ``alpha``, which the JAX package's file leaves out (it regenerates
+        ``alpha`` from the seed); the port reads both kinds of file."""
         b = self.bank
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp"
@@ -159,16 +158,18 @@ class PartitionedIndex:
                 int(z["divisions"])) != (pp.m, pp.lam, pp.tables, pp.divisions):
             # reference hard-asserts registry↔config match (index:809-817)
             raise ValueError("persisted bank hyperparams do not match config")
-        if "alpha" not in z.files:
-            # a JAX-package bank file: its alpha comes from threefry, which
-            # this package cannot regenerate from the seed
-            raise ValueError(f"{path} holds no alpha; carry a JAX bank "
-                             f"across with api.convert.bank_from_jax")
-        self.bank = coding.GBank(
-            z["alpha"].astype(np.float32), z["r"].astype(np.float32),
-            z["omega"].astype(np.float32), pp.m, pp.lam, pp.tables,
-            pp.divisions, int(z["seed"]))
-        self._bank_dev = None
+        if "alpha" in z.files:
+            self.bank = coding.GBank(
+                z["alpha"].astype(np.float32), z["r"].astype(np.float32),
+                z["omega"].astype(np.float32), pp.m, pp.lam, pp.tables,
+                pp.divisions, int(z["seed"]))
+        else:
+            # the JAX package's file: alpha regenerates from the seed, bit
+            # for bit (its threefry stream, ops/threefry.py)
+            self.bank = coding.bank_from_stats(
+                z["omega"], z["r"], self.dim, pp.m, pp.lam, pp.tables,
+                pp.divisions, int(z["seed"]))
+        self._bank_cpu = self._bank_dev = None
 
     def _dev_bank(self) -> coding.GBank:
         """The bank on ``self.device``, moved once (``alpha`` is [G, m, d])
@@ -176,6 +177,18 @@ class PartitionedIndex:
         if self._bank_dev is None:
             self._bank_dev = coding.bank_to(self.bank, self.device)
         return self._bank_dev
+
+    def _host_bank(self) -> coding.GBank:
+        """The bank as float32 numpy arrays for the host encoder; a bank
+        installed as tensors is copied to the host once."""
+        if self._bank_cpu is None:
+            b = self.bank
+            self._bank_cpu = coding.GBank(
+                *(v.cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v, np.float32)
+                  for v in (b.alpha, b.r, b.omega)),
+                b.m, b.lam, b.tables, b.divisions, b.seed)
+        return self._bank_cpu
 
     # -- ingestion ----------------------------------------------------------------
 
@@ -215,7 +228,7 @@ class PartitionedIndex:
         """(uint32 codes [n, G, W], int64 keys [n, G]) on the host, encoded
         by the configured backend: numpy BLAS, or the index device."""
         if self.cfg.runtime.encode_backend == "cpu":
-            return coding.encode_numpy(vecs, self.bank)
+            return coding.encode_numpy(vecs, self._host_bank())
         codes, keys = coding.encode(
             torch.from_numpy(np.ascontiguousarray(vecs, np.float32))
             .to(self.device), self._dev_bank())
@@ -227,6 +240,14 @@ class PartitionedIndex:
         self._keys.append(keys)
         self._ids.append(ids)
         self._staged += len(ids)
+
+    @property
+    def staged_bytes(self) -> int:
+        """Host memory held by the staging arrays (observability hook for
+        ingestion backpressure at stretch scale)."""
+        return sum(c.nbytes for c in self._codes) \
+            + sum(k.nbytes for k in self._keys) \
+            + sum(i.nbytes for i in self._ids)
 
     # -- finalize -------------------------------------------------------------------
 

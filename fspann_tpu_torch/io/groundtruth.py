@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..ops.l2_topk import l2_topk
 from ..ops.refine import bruteforce_topk
 from .loaders import read_csv, read_ivecs
@@ -68,9 +68,10 @@ def precompute(base: np.ndarray, queries: np.ndarray, k: int = 100,
     backend: "kernel" (the streaming L2 top-k kernel, ops/l2_topk.py —
     the default on CUDA) or "torch" (its plain twin: chunked matmul +
     top-k, ops/refine.bruteforce_topk — the default on the CPU).
-    ``device`` defaults to :func:`fspann_tpu_torch.default_device`.
+    ``device`` defaults to the CUDA card
+    (:func:`fspann_tpu_torch.resolve_device`).
     """
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     if backend is None:
         backend = "kernel" if device.type == "cuda" else "torch"
     # torch.tensor copies, so read-only inputs (mapped vecs files) are fine

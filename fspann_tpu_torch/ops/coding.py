@@ -14,10 +14,13 @@ Reference behavior being reproduced (index/paper/Coding.java):
   (GreedyPartitioner.java:87-96).
 
 The bank is a plain frozen dataclass of numpy arrays, built on the host.
-``alpha`` and the unit offsets are drawn from a ``torch.Generator`` seeded
-from ``seed`` — NOT the JAX package's threefry stream, so the same seed
-gives a different bank there.  Tests and cross-package runs carry a JAX bank
-across with :func:`fspann_tpu_torch.api.convert.bank_from_jax`.
+``alpha`` and the unit offsets are drawn from JAX's threefry stream
+(:mod:`.threefry`, numpy only) under the JAX package's fold-in tags, and
+``alpha`` is row-normalised with XLA's CPU summation order, so a seed gives
+the JAX package's bank bit for bit: a store that records only the seed and
+the sample statistics (the JAX ``bank.npz``, ``mesh_state.npz``) reopens
+here.  A bank held in memory crosses with
+:func:`fspann_tpu_torch.api.convert.bank_from_jax`.
 
 Two encoders, as in the JAX package: :func:`encode_numpy` on the host
 (numpy BLAS; ``encode_backend="cpu"``) and :func:`encode` on the tensor's
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import threefry
 from .refine import full_fp32_matmul
 
 # fold-in tags separating the alpha and offset streams of one seed
@@ -78,25 +82,33 @@ class GBank:
         return (self.code_bits + 31) // 32
 
 
-def _generator(seed: int, tag: int) -> torch.Generator:
-    """The CPU generator (mt19937) keeps only the low 32 bits of its seed,
-    so the stream tag is XORed in rather than concatenated."""
-    gen = torch.Generator("cpu")
-    gen.manual_seed((int(seed) ^ tag) & 0xFFFFFFFF)
-    return gen
+def _key(seed: int, tag: int) -> np.ndarray:
+    """``fold_in(PRNGKey(uint32(seed)), tag)``: one stream per tag."""
+    return threefry.fold_in(threefry.prng_key(seed), tag)
 
 
 def _alpha_from_seed(seed: int, g: int, m: int, d: int) -> np.ndarray:
-    a = torch.randn((g, m, d), generator=_generator(seed, _ALPHA_TAG),
-                    dtype=torch.float32)
-    norm = torch.sqrt(torch.clamp((a * a).sum(dim=-1, keepdim=True),
-                                  min=1e-12))
-    return (a / norm).numpy()
+    """Row-normalised Gaussian projections, as the JAX package draws them:
+    ``a / sqrt(max(sum(a * a, -1), 1e-12))`` in float32, the sum in XLA's
+    CPU order (:func:`.threefry.sum_last_f32`)."""
+    a = threefry.normal(_key(seed, _ALPHA_TAG), (g, m, d))
+    sq = threefry.sum_last_f32(a * a)[..., None]
+    return a / np.sqrt(np.maximum(sq, np.float32(1e-12)))
 
 
 def _r_unit_from_seed(seed: int, g: int, m: int) -> np.ndarray:
-    return torch.rand((g, m), generator=_generator(seed, _R_TAG),
-                      dtype=torch.float32).numpy()
+    return threefry.uniform(_key(seed, _R_TAG), (g, m))
+
+
+def build_random_bank(d: int, m: int, lam: int, tables: int, divisions: int,
+                      seed: int, omega: float = 1.0) -> GBank:
+    """Uniform-width bank when no sample statistics are available
+    (reference Coding.buildRandomG:136-161)."""
+    g = tables * divisions
+    alpha = _alpha_from_seed(seed, g, m, d)
+    om = np.full((g, m), np.float32(omega))
+    r = _r_unit_from_seed(seed, g, m) * om
+    return GBank(alpha, r, om, m, lam, tables, divisions, seed)
 
 
 def _omega_from_sample(sample: np.ndarray, alpha: np.ndarray,

@@ -41,11 +41,14 @@ class DistributedEncryptedSystem:
     rest, forward-secure rotation via the shared keystore."""
 
     def __init__(self, cfg: SystemConfig, base_dir: str, dim: int,
-                 mesh=None, key_manager: KeyManager | None = None):
+                 mesh=None, key_manager: KeyManager | None = None,
+                 device=None):
+        """``mesh`` defaults to ``make_mesh(device=device)``: the shards of
+        one device, the CUDA card unless ``device`` names another."""
         self.cfg = cfg
         self.dim = dim
         self.base_dir = base_dir
-        self.mesh = mesh or make_mesh()
+        self.mesh = mesh or make_mesh(device=device)
         self.ndev = self.mesh.n_shards
         os.makedirs(base_dir, exist_ok=True)
         self.km = key_manager if key_manager is not None else KeyManager(

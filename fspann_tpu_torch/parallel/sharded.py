@@ -50,7 +50,7 @@ import os
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..ops import coding, hamming_scan, partition, routing
 from ..ops.hamming_scan import _DEAD
 from ..ops.partition import PartitionTable
@@ -69,12 +69,13 @@ class Mesh:
 
 
 def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
-    """``n_devices`` shards on ``device`` (default: the card when one is
-    present, as the port's other entry points; the tests pass ``"cpu"``).
+    """``n_devices`` shards on ``device`` (default: the CUDA card, as for the
+    port's other entry points, and an error without one; the tests pass
+    ``"cpu"``).
     With ``n_devices=None`` the count is the number of visible CUDA devices
     for a CUDA ``device`` and 1 on the CPU; more shards than devices is the
     normal case, since every shard lives on the one ``device``."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     if n_devices is None:
         n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     if n_devices <= 0:
@@ -376,9 +377,9 @@ class ShardedIndex:
         every routing structure (tables/bits rebuild deterministically), so
         the checkpoint is N·G·W words instead of all derived state.
 
-        The file holds the JAX package's keys and, beside them, ``alpha``:
-        the port cannot regenerate a bank's projections from its seed when
-        the bank was carried across from the JAX package."""
+        The file holds the JAX package's keys and, beside them, ``alpha``
+        (the JAX package regenerates it from the seed; either file
+        restores here)."""
         codes = self.point_codes if self.point_codes is not None \
             else self.words
         if codes is None and self.bits is None:
@@ -414,21 +415,23 @@ class ShardedIndex:
         """Rebuild a ShardedIndex from :meth:`save_state` — the codes ship
         straight to the device (no re-encode, no plaintext) and tables/bits
         rebuild per shard.  Fails if the mesh size disagrees with the
-        checkpoint's shard geometry, or if the file holds no ``alpha`` (a
-        checkpoint written by the JAX package: its projections come from a
-        generator the port does not have)."""
+        checkpoint's shard geometry.  A checkpoint without ``alpha`` (the
+        JAX package's) regenerates it from the seed, as JAX's own restore
+        does (``coding.bank_from_stats``)."""
         with np.load(path) as z:
             nd = int(z["ndev"])
             if mesh.n_shards != nd:
                 raise ValueError(f"checkpoint is for {nd} devices, mesh has "
                                  f"{mesh.n_shards}")
-            if "alpha" not in z.files:
-                raise ValueError(f"{path} holds no alpha; carry a JAX bank "
-                                 f"across with api.convert.bank_from_jax")
-            bank = coding.GBank(
-                z["alpha"].astype(np.float32), z["r"].astype(np.float32),
-                z["omega"].astype(np.float32), int(z["m"]), int(z["lam"]),
-                int(z["tables"]), int(z["divisions"]), int(z["seed"]))
+            hyper = (int(z["m"]), int(z["lam"]), int(z["tables"]),
+                     int(z["divisions"]), int(z["seed"]))
+            if "alpha" in z.files:
+                bank = coding.GBank(
+                    z["alpha"].astype(np.float32), z["r"].astype(np.float32),
+                    z["omega"].astype(np.float32), *hyper)
+            else:
+                bank = coding.bank_from_stats(z["omega"], z["r"],
+                                              int(z["dim"]), *hyper)
             idx = cls(mesh, bank, block_size=int(z["block"]),
                       wide_keys=bool(z["wide"]) if "wide" in z.files
                       else False)

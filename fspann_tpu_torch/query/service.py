@@ -23,6 +23,7 @@ batch's host AES.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -76,6 +77,40 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+# -- candidate-id transfer packing ------------------------------------------------
+# Row ids fit 24 bits at any corpus below ~16.7M rows, so the device packs
+# (id + 1) into 3 little-endian bytes (+1 maps the -1 pad to 0) and the host
+# widens them back: the ranked-id copy to the host moves 25% fewer bytes.
+
+def _pack24(x: torch.Tensor) -> torch.Tensor:
+    """int ids in [-1, _PACK24_MAX] → uint8 [..., 3] on ``x``'s device.
+    ``id + 1`` is below 2^24, so int32 shifts suffice (no uint32)."""
+    y = x.to(torch.int32) + 1
+    return torch.stack([y & 0xFF, (y >> 8) & 0xFF, (y >> 16) & 0xFF],
+                       dim=-1).to(torch.uint8)
+
+
+_PACK24_MAX = (1 << 24) - 2        # largest id that survives the +1 encode
+
+
+def _pack_transfer_enabled(device: torch.device) -> bool:
+    """Pack only when the ids cross a device link: ids already on the
+    host CPU gain nothing.  FSPANN_PACK24=1/0 forces it either way (tests
+    use 1 to exercise the packed path on the CPU suite)."""
+    v = os.environ.get("FSPANN_PACK24")
+    if v is not None:
+        return v not in ("0", "off")
+    return device.type != "cpu"
+
+
+def _unpack24(b: np.ndarray) -> np.ndarray:
+    b = np.asarray(b)
+    v = (b[..., 0].astype(np.int32)
+         | (b[..., 1].astype(np.int32) << 8)
+         | (b[..., 2].astype(np.int32) << 16))
+    return v - 1
+
+
 def _topk_from_d2(d2: np.ndarray, cand_ids: np.ndarray, valid: np.ndarray,
                   k: int):
     """Shared stage-C tail: top-k by squared distance (invalid = inf)."""
@@ -96,6 +131,23 @@ def _topk_from_d2(d2: np.ndarray, cand_ids: np.ndarray, valid: np.ndarray,
         dists = np.pad(dists, ((0, 0), (0, k - kk)),
                        constant_values=np.inf)
     return ids.astype(np.int64), dists.astype(np.float32), n_scored
+
+
+def _host_refine(qvecs: np.ndarray, cand_vecs: np.ndarray,
+                 cand_ids: np.ndarray, valid: np.ndarray, k: int,
+                 c2: np.ndarray | None = None):
+    """Stage C on the host: exact L2 + top-k via BLAS, same semantics as the
+    device refine kernel but no device transfer of candidate vectors.
+    ``c2`` (f32 [q, r]) supplies precomputed squared candidate norms (the
+    decrypt stage emits them from L1) — skips a full re-read pass."""
+    q, r, d = cand_vecs.shape
+    dots = np.einsum("qrd,qd->qr", cand_vecs, qvecs, optimize=True)
+    if c2 is None:
+        cv = cand_vecs.reshape(q * r, d)
+        c2 = np.einsum("ij,ij->i", cv, cv).reshape(q, r)
+    q2 = np.einsum("ij,ij->i", qvecs, qvecs)
+    d2 = c2 - 2.0 * dots + q2[:, None]
+    return _topk_from_d2(d2, cand_ids, valid, k)
 
 
 def _host_refine_scored(qvecs: np.ndarray, dots: np.ndarray, c2: np.ndarray,
@@ -321,14 +373,15 @@ class QueryService:
         return s.returned < k or s.cand_decrypted < budget
 
     def _dispatch_route(self, tokens, probes, limit):
-        """Stage A dispatch — returns (routed, copies, width, dispatch_ns).
-        On a CUDA scan device this only enqueues work (the pipeline overlaps
-        it with the previous batch's host AES); on the CPU the scan computes
-        synchronously here and dispatch_ns — charged to the route stage —
-        carries its true cost.  ``copies`` holds the device→host copies of
-        the ranked id matrix cut to the predicted live width (previous
-        batch's, pow2-bucketed) and of the per-query counters, started now
-        so the consume side finds them on the host."""
+        """Stage A dispatch — returns (routed, copies, width, dispatch_ns,
+        packed).  On a CUDA scan device this only enqueues work (the
+        pipeline overlaps it with the previous batch's host AES); on the CPU
+        the scan computes synchronously here and dispatch_ns — charged to
+        the route stage — carries its true cost.  ``copies`` holds the
+        device→host copies of the ranked id matrix cut to the predicted live
+        width (previous batch's, pow2-bucketed), 24-bit packed when
+        ``packed``, and of the per-query counters, started now so the
+        consume side finds them on the host."""
         # host-side stack: tokens carry numpy codes, and the scan path
         # unpacks them on the host anyway
         qc = np.stack([t.codes for t in tokens])
@@ -342,13 +395,20 @@ class QueryService:
             ids_slice, width = routed.ids[:, :pred], pred
         else:
             ids_slice, width = routed.ids, r_full
+        # 24-bit transfer packing: tensors only (the native path already
+        # holds numpy), and the ids must fit the encode
+        packed = (isinstance(ids_slice, torch.Tensor)
+                  and _pack_transfer_enabled(ids_slice.device)
+                  and 0 <= self.index.max_route_id() <= _PACK24_MAX)
+        if packed:
+            ids_slice = _pack24(ids_slice)
         copies = _HostCopy((ids_slice, routed.n_unique, routed.n_raw,
                             routed.n_dec))
-        return routed, copies, width, dispatch_ns
+        return routed, copies, width, dispatch_ns, packed
 
     def _consume_pass(self, tokens, qvecs, dispatched, k, touched_parts,
                       t_start):
-        routed, copies, pred, dispatch_ns = dispatched
+        routed, copies, pred, dispatch_ns, packed = dispatched
         # stage attribution: route_ns counts only the time THIS thread spends
         # blocked on the device result — pipeline overlap (the previous
         # batch's host work ran between dispatch and here) is not charged
@@ -367,8 +427,8 @@ class QueryService:
         width = n_unique if n_dec is None else n_dec
         need = max(int(width.max(initial=1)), k, 1)
         if need <= pred:
-            cand_ids = ids_slice
-        else:   # mispredict: fall back to the full matrix
+            cand_ids = _unpack24(ids_slice) if packed else ids_slice
+        else:   # mispredict: fall back to the full (unpacked) matrix
             cand_ids = _host(routed.ids)
         self._slice_pred = min(max(256, 1 << (need - 1).bit_length()), r_full)
         if n_dec is not None:

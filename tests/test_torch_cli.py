@@ -68,7 +68,7 @@ def test_cli_full_then_query_only(dataset, capsys):
                    "--gt", "AUTO", "--config", cfg,
                    "--base-dir", str(dataset / "db"),
                    "--results", str(dataset / "res"),
-                   "--query-batch", "4"])
+                   "--query-batch", "4", "--device", "cpu"])
     assert rc == 0
     out = _last_json(capsys)
     assert out["recall_at_10"] is None     # k <= 5 here
@@ -79,7 +79,8 @@ def test_cli_full_then_query_only(dataset, capsys):
                     "--config", cfg,
                     "--base-dir", str(dataset / "db"),
                     "--results", str(dataset / "res2"),
-                    "--query-batch", "4", "--no-reencrypt"])
+                    "--query-batch", "4", "--no-reencrypt",
+                    "--device", "cpu"])
     assert rc2 == 0
     assert _last_json(capsys)["queries"] == 6
 
@@ -87,7 +88,7 @@ def test_cli_full_then_query_only(dataset, capsys):
 def test_cli_requires_data_without_query_only(dataset):
     with pytest.raises(SystemExit):
         cli.main(["--queries", str(dataset / "q.fvecs"),
-                  "--base-dir", str(dataset / "db2")])
+                  "--base-dir", str(dataset / "db2"), "--device", "cpu"])
 
 
 def test_cli_gt_validation_gate(dataset, rng):
@@ -104,7 +105,7 @@ def test_cli_gt_validation_gate(dataset, rng):
                   "--queries", str(dataset / "q.fvecs"),
                   "--gt", str(dataset / "bad.ivecs"), "--config", cfg,
                   "--base-dir", str(dataset / "db3"),
-                  "--results", str(dataset / "res3")])
+                  "--results", str(dataset / "res3"), "--device", "cpu"])
 
 
 @pytest.mark.parametrize("scan_native", ["auto", "off"])
@@ -121,13 +122,13 @@ def test_cli_scan_profile_matches_jax_cli(dataset, capsys, scan_native):
 
     cfg = small_cfg_file(dataset, encodeBackend="cpu", scanNative=scan_native)
 
-    def run(main, db):
+    def run(main, db, extra=()):
         rc = main(["--data", str(dataset / "base.fvecs"),
                    "--queries", str(dataset / "q.fvecs"),
                    "--gt", "AUTO", "--config", cfg, "--profile", "SCAN",
                    "--base-dir", str(dataset / db),
                    "--results", str(dataset / f"res_{db}"),
-                   "--query-batch", "4"])
+                   "--query-batch", "4", *extra])
         assert rc == 0
         assert (dataset / f"res_{db}" / "summary.csv").exists()
         return _last_json(capsys)
@@ -141,7 +142,7 @@ def test_cli_scan_profile_matches_jax_cli(dataset, capsys, scan_native):
                          np.asarray(jb.alpha), np.asarray(jb.r),
                          np.asarray(jb.omega), jb.m, jb.lam, jb.tables,
                          jb.divisions, jb.seed))
-    got = run(cli.main, "torch")
+    got = run(cli.main, "torch", ("--device", "cpu"))
     assert got["queries"] == want["queries"] == 6
     assert got["recall_at_10"] == want["recall_at_10"]
     assert got["ratio"] == pytest.approx(want["ratio"], abs=1e-6)
@@ -158,7 +159,8 @@ def test_cli_decoys_produce_real_metrics(dataset, capsys):
                        "--gt", "AUTO", "--config", cfg,
                        "--base-dir", str(dataset / dbdir),
                        "--results", str(dataset / ("res_" + dbdir)),
-                       "--query-batch", "4", "--no-reencrypt"] + extra)
+                       "--query-batch", "4", "--no-reencrypt",
+                       "--device", "cpu"] + extra)
         assert rc == 0
         return _last_json(capsys)
 
@@ -196,7 +198,7 @@ def small_cfg(**runtime):
 
 
 def test_two_dims_share_keys(tmp_path, rng):
-    md = MultiDimSystem(small_cfg(), str(tmp_path / "db"))
+    md = MultiDimSystem(small_cfg(), str(tmp_path / "db"), device="cpu")
     try:
         v8 = rng.normal(size=(1100, 8)).astype(np.float32)
         v16 = rng.normal(size=(1100, 16)).astype(np.float32)
@@ -218,7 +220,7 @@ def test_two_dims_share_keys(tmp_path, rng):
 
 
 def test_multidim_restore_all(tmp_path, rng):
-    md = MultiDimSystem(small_cfg(), str(tmp_path / "db"))
+    md = MultiDimSystem(small_cfg(), str(tmp_path / "db"), device="cpu")
     v8 = rng.normal(size=(1100, 8)).astype(np.float32)
     v16 = rng.normal(size=(1100, 16)).astype(np.float32)
     md.batch_insert(np.arange(1100), v8)
@@ -226,7 +228,7 @@ def test_multidim_restore_all(tmp_path, rng):
     md.finalize_for_search()
     r1 = md.search(md.create_token(v8[3], 1))[0].id
     md.shutdown()
-    md2 = MultiDimSystem(small_cfg(), str(tmp_path / "db"))
+    md2 = MultiDimSystem(small_cfg(), str(tmp_path / "db"), device="cpu")
     try:
         assert md2.restore_all() == {8: 1100, 16: 1100}
         assert md2.search(md2.create_token(v8[3], 1))[0].id == r1
@@ -239,7 +241,7 @@ def test_multidim_background_reencryption_shares_keystore(tmp_path, rng):
     cfg = dataclasses.replace(
         small_cfg(), reencryption=ReencryptionConfig(
             background_enabled=True, background_interval_s=30.0))
-    md = MultiDimSystem(cfg, str(tmp_path / "db"))
+    md = MultiDimSystem(cfg, str(tmp_path / "db"), device="cpu")
     try:
         md.batch_insert(np.arange(1100),
                         rng.normal(size=(1100, 8)).astype(np.float32))
@@ -261,7 +263,7 @@ def test_multidim_scan_mode_with_live_insert(tmp_path, rng, scan_native):
     """Scan-mode sub-systems off one keystore, each taking live inserts."""
     md = MultiDimSystem(small_cfg(routing_mode="scan", rerank_limit=80,
                                   scan_native=scan_native),
-                        str(tmp_path / "md"))
+                        str(tmp_path / "md"), device="cpu")
     try:
         for dim in (8, 24):
             base = rng.normal(size=(1100, dim)).astype(np.float32) * 3

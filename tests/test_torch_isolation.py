@@ -9,10 +9,15 @@ docstrings (the one sanctioned code edit: ``crypto/aesgcm.py`` and
 ``ops/native_scan.py`` build their C library into the port's build
 directory instead of running ``make`` inside ``fspann_tpu``).  The two C
 sources those libraries are built from are carried too, byte for byte, and
-no Python file of the port or of ``chip_smoke.py`` names a path under
-``fspann_tpu/`` in its code."""
+no Python file of the port, of its examples or of ``chip_smoke.py`` names a
+path under ``fspann_tpu/`` in its code.  The carried entry points
+(``api/system.py``, ``api/multidim.py``, ``api/cli.py``) differ from their
+sources by a ``device`` parameter alone: the port serves from the CUDA card
+unless its caller names another device, and nothing in the port asks
+``torch.cuda.is_available()`` to pick the CPU."""
 
 import ast
+import glob
 import os
 import pkgutil
 import re
@@ -24,6 +29,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "fspann_tpu")
 PORT = os.path.join(REPO, "fspann_tpu_torch")
+EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py")))
 
 CARRIED = ["config.py", "types.py", "crypto/aesgcm.py", "crypto/keys.py",
            "crypto/rotation.py", "crypto/coordinator.py", "store/arena.py",
@@ -45,6 +51,44 @@ NATIVE_LIBS = {"crypto/aesgcm.py": "aes_gcm_library_path()",
 # C sources: the JAX package's file -> the port's copy under csrc/native/
 CARRIED_C = {"crypto/native/aes_gcm.c": "csrc/native/aes_gcm.c",
              "ops/native/hamming_topl.c": "csrc/native/hamming_topl.c"}
+# Carried entry points that take the device to serve from (``device=`` /
+# ``--device``); with it taken out they must equal their sources
+DEVICE_PARAM = {"api/system.py", "api/multidim.py", "api/cli.py"}
+
+
+class _WithoutDevice(ast.NodeTransformer):
+    """Takes the ``device`` parameter out of a module: the argument and its
+    default, ``device=`` keywords, ``self.device = ...`` and the
+    ``--device`` option."""
+
+    def visit_arguments(self, node):
+        names = [a.arg for a in node.args]
+        if "device" in names:
+            i = names.index("device")
+            j = i - (len(node.args) - len(node.defaults))
+            node.args.pop(i)
+            if j >= 0:
+                node.defaults.pop(j)
+        return self.generic_visit(node)
+
+    def visit_Call(self, node):
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return self.generic_visit(node)
+
+    def visit_Assign(self, node):
+        t = node.targets[0]
+        if isinstance(t, ast.Attribute) and t.attr == "device":
+            return None
+        return self.generic_visit(node)
+
+    def visit_Expr(self, node):
+        v = node.value
+        if isinstance(v, ast.Call) and isinstance(v.func, ast.Attribute) \
+                and v.func.attr == "add_argument" and v.args \
+                and isinstance(v.args[0], ast.Constant) \
+                and v.args[0].value == "--device":
+            return None
+        return self.generic_visit(node)
 
 
 def _tree(path):
@@ -94,6 +138,9 @@ def test_carried_module_matches_source(rel):
         with open(os.path.join(PORT, rel)) as f:
             text = f.read()
         assert NATIVE_LIBS[rel] in text and "subprocess" not in text
+    elif rel in DEVICE_PARAM:
+        assert _code(port) != _code(src)          # the parameter is there
+        assert _code(_WithoutDevice().visit(port)) == _code(src)
     else:
         assert _code(port) == _code(src)
 
@@ -130,11 +177,11 @@ def test_no_python_file_builds_a_path_into_the_jax_package():
     replaces (``file.py:line``, the ``replaces`` key of its record); it may
     not name a file otherwise."""
     part = re.compile(r"(^|[\\/])fspann_tpu($|[\\/])")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + EXAMPLES
     for dirpath, _dirs, names in os.walk(PORT):
         files += [os.path.join(dirpath, fn) for fn in names
                   if fn.endswith(".py")]
-    assert len(files) > 40
+    assert len(files) > 45 and len(EXAMPLES) == 5
     for path in files:
         for text in _code_strings(path):
             if path.endswith("chip_smoke.py") \
@@ -167,12 +214,53 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _port_and_example_files():
+    files = list(EXAMPLES)
+    for dirpath, _dirs, names in os.walk(PORT):
+        files += [os.path.join(dirpath, fn) for fn in names
+                  if fn.endswith(".py")]
+    return files
+
+
 def test_no_jax_import_statement_in_port():
     pat = re.compile(r"^\s*(import jax|from jax|import fspann_tpu\b|"
                      r"from fspann_tpu\b(?!_torch))")
-    for dirpath, _dirs, files in os.walk(PORT):
-        for fn in files:
-            if fn.endswith(".py"):
-                with open(os.path.join(dirpath, fn)) as f:
-                    for i, ln in enumerate(f, 1):
-                        assert not pat.match(ln), f"{fn}:{i}: {ln.strip()}"
+    files = _port_and_example_files()
+    assert os.path.join(PORT, "ops", "threefry.py") in files
+    for path in files:
+        with open(path) as f:
+            for i, ln in enumerate(f, 1):
+                assert not pat.match(ln), f"{path}:{i}: {ln.strip()}"
+
+
+def test_threefry_imports_neither_jax_nor_torch():
+    """``ops/threefry.py`` stands alone on numpy (loaded by path, so the
+    package ``__init__`` and its torch import stay out)."""
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('threefry', "
+            f"{os.path.join(PORT, 'ops', 'threefry.py')!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'torch', 'fspann_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_only_the_device_rule_asks_for_cuda():
+    """No module of the port but ``__init__.py`` (``default_device``) and
+    ``utils/devmem.py`` (a read-only memory query) calls
+    ``torch.cuda.is_available()``: nothing picks the CPU by itself."""
+    allowed = {os.path.join(PORT, "__init__.py"),
+               os.path.join(PORT, "utils", "devmem.py")}
+    callers = set()
+    for path in _port_and_example_files():
+        for n in ast.walk(_tree(path)):
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) \
+                    and n.func.attr == "is_available" \
+                    and "cuda" in ast.dump(n.func.value):
+                callers.add(path)
+    assert callers <= allowed, sorted(callers - allowed)
+    assert os.path.join(PORT, "__init__.py") in callers

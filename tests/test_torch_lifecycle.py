@@ -176,7 +176,7 @@ def _pair(tmp_path, base, tag, **rt):
     js.finalize_for_search()
     ts = ForwardSecureANNSystem(_cfg(tconfig, **rt),
                                 str(tmp_path / f"{tag}_torch"), D,
-                                query_batch=QB)
+                                query_batch=QB, device="cpu")
     ts.index.set_bank(_carried(js.index.bank))
     ts.index_stream(base, batch_size=300)
     ts.finalize_for_search()
@@ -188,7 +188,7 @@ def _restore_pair(tmp_path, tag, **rt):
                    query_batch=QB)
     ts = ForwardSecureANNSystem(_cfg(tconfig, **rt),
                                 str(tmp_path / f"{tag}_torch"), D,
-                                query_batch=QB)
+                                query_batch=QB, device="cpu")
     nj, nt = js.restore_index_from_disk(), ts.restore_index_from_disk()
     assert nj == nt
     return js, ts
@@ -233,7 +233,8 @@ def test_capacity_padding_matches_exact_fit(tmp_path, rng, packed):
     js, ts = _pair(tmp_path, base, "pad", scan_packed=packed,
                    scan_capacity_rows=N + 256)
     fit = ForwardSecureANNSystem(_cfg(tconfig, scan_packed=packed),
-                                 str(tmp_path / "fit"), D, query_batch=QB)
+                                 str(tmp_path / "fit"), D, query_batch=QB,
+                                 device="cpu")
     try:
         fit.index.set_bank(ts.index.bank)
         fit.index_stream(base, batch_size=300)
@@ -451,7 +452,7 @@ def test_packed_system_end_to_end(tmp_path, rng):
         rng.normal(size=(q, D)).astype(np.float32) * 0.05
     js, ts = _pair(tmp_path, base, "on", scan_packed="on")
     off = ForwardSecureANNSystem(_cfg(tconfig), str(tmp_path / "off"), D,
-                                 query_batch=QB)
+                                 query_batch=QB, device="cpu")
     try:
         off.index.set_bank(ts.index.bank)
         off.index_stream(base, batch_size=1500)
@@ -475,7 +476,7 @@ def test_packed_system_end_to_end(tmp_path, rng):
             s.shutdown()
     back = ForwardSecureANNSystem(_cfg(tconfig, scan_packed="on"),
                                   str(tmp_path / "on_torch"), D,
-                                  query_batch=QB)
+                                  query_batch=QB, device="cpu")
     try:
         assert back.restore_index_from_disk() == n + 5
         assert isinstance(back.index._scan_state, ths.PackedScanState)
@@ -600,7 +601,8 @@ def test_buffered_inserter_flush_threshold():
 
 
 def test_single_insert_path_via_buffer(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         vecs = rng.normal(size=(1200, DIM)).astype(np.float32)
         for i, v in enumerate(vecs):
@@ -613,7 +615,8 @@ def test_single_insert_path_via_buffer(tmp_path, rng):
 
 
 def test_coordinator_csv_and_counters(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         sys_.index_stream(rng.normal(size=(1100, DIM)).astype(np.float32),
                           batch_size=600)
@@ -634,7 +637,8 @@ def test_coordinator_csv_and_counters(tmp_path, rng):
 
 
 def test_query_cache_hit(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         sys_.index_stream(rng.normal(size=(1100, DIM)).astype(np.float32),
                           batch_size=600)
@@ -649,7 +653,8 @@ def test_query_cache_hit(tmp_path, rng):
 
 
 def test_key_retention_enforcement(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         sys_.index_stream(rng.normal(size=(1100, DIM)).astype(np.float32),
                           batch_size=600)
@@ -668,7 +673,8 @@ def test_key_retention_enforcement(tmp_path, rng):
 
 
 def test_empty_index_finalize_raises(tmp_path):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         with pytest.raises(RuntimeError, match="nothing staged"):
             sys_.finalize_for_search()
@@ -677,7 +683,8 @@ def test_empty_index_finalize_raises(tmp_path):
 
 
 def test_stage_after_finalize_raises(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         sys_.index_stream(rng.normal(size=(1100, DIM)).astype(np.float32),
                           batch_size=600)
@@ -690,7 +697,8 @@ def test_stage_after_finalize_raises(tmp_path, rng):
 
 
 def test_compact_storage_and_undelete_window(tmp_path, rng):
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     try:
         sys_.index_stream(rng.normal(size=(1100, DIM)).astype(np.float32),
                           batch_size=600)
@@ -713,7 +721,7 @@ def test_compact_storage_and_undelete_window(tmp_path, rng):
 def test_immediate_reencryption_mode(tmp_path, rng):
     imm = dataclasses.replace(
         _lcfg(), reencryption=tconfig.ReencryptionConfig(mode="immediate"))
-    sys_ = ForwardSecureANNSystem(imm, str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(imm, str(tmp_path / "db"), DIM, device="cpu")
     try:
         vecs = rng.normal(size=(1100, DIM)).astype(np.float32)
         sys_.index_stream(vecs, batch_size=600)
@@ -740,7 +748,7 @@ def test_immediate_reencryption_covers_live_inserts(tmp_path, rng):
     cfg = dataclasses.replace(
         _cfg(tconfig), reencryption=tconfig.ReencryptionConfig(
             mode="immediate"))
-    sys_ = ForwardSecureANNSystem(cfg, str(tmp_path / "db"), D)
+    sys_ = ForwardSecureANNSystem(cfg, str(tmp_path / "db"), D, device="cpu")
     try:
         sys_.index_stream(_base(rng), batch_size=300)
         sys_.finalize_for_search()
@@ -755,21 +763,24 @@ def test_immediate_reencryption_covers_live_inserts(tmp_path, rng):
 
 def test_restore_at_explicit_older_version(tmp_path, rng):
     vecs = rng.normal(size=(1100, DIM)).astype(np.float32)
-    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    sys_ = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                  device="cpu")
     sys_.index_stream(vecs, batch_size=600)
     sys_.finalize_for_search()
     sys_.rotation.force_rotate_now()   # v2
     sys_.rotation.force_rotate_now()   # v3
     sys_.store.meta.save_index_version(3)
     sys_.shutdown()
-    r = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    r = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                               device="cpu")
     try:
         assert r.restore_index_from_disk(version=2) == 1100
         assert r.rotation.pinned_version == 2
         assert r.search(r.create_token(vecs[9], 5))[0].id == 9
     finally:
         r.shutdown()
-    r2 = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM)
+    r2 = ForwardSecureANNSystem(_lcfg(), str(tmp_path / "db"), DIM,
+                                device="cpu")
     try:
         with pytest.raises(KeyError):
             r2.restore_index_from_disk(version=99)
@@ -887,3 +898,32 @@ def test_g6_correctness_preserved_under_rotation(game):
         out, ok = store.load_decrypt_batch(np.arange(50))
         assert ok.all()
         np.testing.assert_allclose(out, vecs, rtol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "default"])
+def test_staged_bytes_and_host_bank_match_jax(rng, backend):
+    """``PartitionedIndex.staged_bytes`` counts the same staging arrays as
+    the JAX index's, batch by batch (nothing while rows wait for the bank's
+    sample), and ``_host_bank`` holds the bank as float32 numpy arrays,
+    made once, also when the bank was installed as tensors."""
+    from fspann_tpu.index.service import PartitionedIndex as JIndex
+    from fspann_tpu_torch.index.service import PartitionedIndex
+
+    j = JIndex(_cfg(jconfig, encode_backend=backend), D)
+    t = PartitionedIndex(_cfg(tconfig, encode_backend=backend), D,
+                         device="cpu")
+    vecs = rng.normal(size=(1600, D)).astype(np.float32)
+    for s in range(0, 1600, 400):
+        for idx in (j, t):
+            idx.stage(np.arange(s, s + 400), vecs[s:s + 400])
+        assert t.staged_bytes == j.staged_bytes
+        assert (t.staged_bytes > 0) == (s + 400 >= 1000)
+    hb = t._host_bank()
+    assert t._host_bank() is hb
+    for f in ("alpha", "r", "omega"):
+        a = getattr(hb, f)
+        assert isinstance(a, np.ndarray) and a.dtype == np.float32
+        np.testing.assert_array_equal(a, getattr(t.bank, f))
+    t.bank = coding.bank_to(t.bank, "cpu")           # installed as tensors
+    t._bank_cpu = None
+    np.testing.assert_array_equal(t._host_bank().alpha, hb.alpha)

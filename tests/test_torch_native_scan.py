@@ -313,7 +313,7 @@ def test_native_route_retry_matches_jax(tmp_path, rng):
     queries = base[:4] + 0.01
     js = JaxSystem(cfg(jconfig), str(tmp_path / "jax"), 24, query_batch=4)
     ts = ForwardSecureANNSystem(cfg(tconfig), str(tmp_path / "torch"), 24,
-                                query_batch=4)
+                                query_batch=4, device="cpu")
     try:
         js.index_stream(base, batch_size=300)
         js.finalize_for_search()

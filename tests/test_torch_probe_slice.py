@@ -59,7 +59,7 @@ def _build_pair(root, base, **kw):
     js.index_stream(base, batch_size=1000)
     js.finalize_for_search()
     ts = ForwardSecureANNSystem(_cfg(tconfig, **kw), str(root / "torch"), D,
-                                query_batch=BATCH)
+                                query_batch=BATCH, device="cpu")
     _carry(js, ts)
     ts.index_stream(base, batch_size=1000)
     ts.finalize_for_search()
@@ -124,7 +124,7 @@ def test_probe_results_decrypts_and_recall_match(pair):
             assert [getattr(s, field) for s in b.stats] == \
                 [getattr(s, field) for s in a.stats], field
     jg = jgt.precompute(base, queries, k=10)
-    tg = tgt.precompute(base, queries, k=10, backend="torch")
+    tg = tgt.precompute(base, queries, k=10, backend="torch", device="cpu")
     ja = js.run_queries(queries, jg, base)
     ta = ts.run_queries(queries, tg, base)
     assert ta.recall_at_k == pytest.approx(ja.recall_at_k)
@@ -162,7 +162,7 @@ def test_port_save_restore_search_round_trip(pair):
               for q in queries[:4]]
     ts.flush_all()
     back = ForwardSecureANNSystem(_cfg(tconfig, **kw), str(root / "torch"),
-                                  D, query_batch=BATCH)
+                                  D, query_batch=BATCH, device="cpu")
     try:
         assert back.restore_index_from_disk() == N
         assert back.index._table_host is not None      # the fast path
@@ -202,14 +202,14 @@ def test_device_encode_and_device_refine_pass_recall_gate(corpus, tmp_path):
     cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
         cfg.runtime, encode_backend="default", refine_backend="device"))
     ts = ForwardSecureANNSystem(cfg, str(tmp_path / "dev"), D,
-                                query_batch=BATCH)
+                                query_batch=BATCH, device="cpu")
     try:
         ts.index_stream(base, batch_size=1000)
         ts.finalize_for_search()
         assert "table_build" in ts.index.finalize_sec
         assert ts.index._table_host is None             # built on device
-        agg = ts.run_queries(queries, tgt.precompute(base, queries, k=10,
-                                                     backend="torch"), base)
+        agg = ts.run_queries(queries, tgt.precompute(
+            base, queries, k=10, backend="torch", device="cpu"), base)
         assert agg.recall_at_k[10] >= 0.8
         assert agg.mean_cand_decrypted == 150
     finally:
@@ -224,7 +224,7 @@ def test_default_config_serves_checkpoints_and_restores(corpus, tmp_path):
     rt = cfg.runtime
     assert (rt.routing_mode, rt.encode_backend, rt.effective_probes(),
             rt.retry_probes) == ("probe", "default", 5, 10)
-    s = ForwardSecureANNSystem(cfg, str(tmp_path / "d"), D)
+    s = ForwardSecureANNSystem(cfg, str(tmp_path / "d"), D, device="cpu")
     try:
         s.index_stream(base[:2000], batch_size=500)
         s.finalize_for_search()
@@ -235,7 +235,7 @@ def test_default_config_serves_checkpoints_and_restores(corpus, tmp_path):
         s.flush_all()
     finally:
         s.shutdown()
-    back = ForwardSecureANNSystem(cfg, str(tmp_path / "d"), D)
+    back = ForwardSecureANNSystem(cfg, str(tmp_path / "d"), D, device="cpu")
     try:
         assert back.restore_index_from_disk() == 2000
         assert [[r.id for r in back.search(back.create_token(q, 10))]

@@ -81,3 +81,31 @@ def test_refine_all_invalid_and_fewer_candidates_than_k(rng):
     assert tuple(t.ids.shape) == (2, 8)
     assert (t.ids == -1).all() and torch.isinf(t.distances).all()
     assert (t.n_scored == 0).all()
+
+
+@pytest.mark.parametrize("with_c2", [True, False])
+def test_host_refine_matches_jax_and_the_scored_path(rng, with_c2):
+    """``query/service._host_refine`` (stage C from candidate vectors) equals
+    the JAX package's bit for bit, and the fused path's
+    ``_host_refine_scored`` on consistent norms and dots (ids and counts
+    equal, distances within 1e-6 as in ``tests/test_refine.py``)."""
+    from fspann_tpu.query.service import _host_refine as jhost_refine
+    from fspann_tpu_torch.query.service import (_host_refine,
+                                                _host_refine_scored)
+
+    q, r, d, k = 5, 64, 16, 10
+    qvecs = rng.normal(size=(q, d)).astype(np.float32)
+    cand = rng.normal(size=(q, r, d)).astype(np.float32)
+    ids = rng.integers(0, 1000, size=(q, r)).astype(np.int64)
+    valid = rng.random(size=(q, r)) > 0.2
+    dots = np.einsum("qrd,qd->qr", cand, qvecs).astype(np.float32)
+    c2 = np.einsum("qrd,qrd->qr", cand, cand).astype(np.float32)
+    kw = {"c2": c2} if with_c2 else {}
+    got = _host_refine(qvecs, cand, ids, valid, k, **kw)
+    for a, b in zip(got, jhost_refine(qvecs, cand, ids, valid, k, **kw)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    i2, d2, n2 = _host_refine_scored(qvecs, dots, c2, ids, valid, k)
+    np.testing.assert_array_equal(got[0], i2)
+    np.testing.assert_allclose(got[1], d2, rtol=1e-6)
+    np.testing.assert_array_equal(got[2], n2)

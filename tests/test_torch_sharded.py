@@ -434,12 +434,11 @@ def test_mesh_checkpoint_restore_roundtrip(tmp_path, rng):
         ShardedIndex.restore_state(path, make_mesh(4, "cpu"))
 
 
-def test_jax_checkpoint_restores_with_alpha_and_is_refused_without(tmp_path,
-                                                                   rng):
-    """The JAX ``mesh_state.npz`` holds no ``alpha`` (JAX regenerates it
-    from the seed, which the port cannot): refused as it is; with the JAX
-    bank's ``alpha`` added to a copy, the port serves JAX's routes.  The
-    port's own file is the JAX file plus ``alpha``."""
+def test_jax_checkpoint_restores_with_alpha_and_without(tmp_path, rng):
+    """The port's ``mesh_state.npz`` is the JAX file plus ``alpha``.  The
+    JAX file itself (no ``alpha``) restores in the port with ``alpha``
+    regenerated from the seed, as JAX's restore does, and so does a copy
+    with the bank's ``alpha`` added; both serve JAX's routes."""
     n, d = 1200, 16
     base = _grid(rng.normal(size=(n, d)) * 3)
     queries = _grid(rng.normal(size=(5, d)) * 3)
@@ -458,8 +457,6 @@ def test_jax_checkpoint_restores_with_alpha_and_is_refused_without(tmp_path,
         assert tz[key].dtype == jz[key].dtype, key
         np.testing.assert_array_equal(tz[key], jz[key], err_msg=key)
     mesh = make_mesh(8, "cpu")
-    with pytest.raises(ValueError, match="holds no alpha"):
-        ShardedIndex.restore_state(jpath, mesh)
     with_alpha = str(tmp_path / "jax_alpha.npz")
     np.savez(with_alpha, alpha=np.asarray(jb.alpha),
              **{key: jz[key] for key in jz.files})
@@ -471,6 +468,27 @@ def test_jax_checkpoint_restores_with_alpha_and_is_refused_without(tmp_path,
                             rerank_limit=40),
                  j.route(queries, probes=3, refinement_limit=128,
                          rerank_limit=40))
+
+    # the JAX file as JAX writes it, from a bank JAX drew from the seed
+    # (the grid bank above is not the seed's): alpha regenerates bit for bit
+    raw = jcoding.build_bank_from_sample(base[:512], 8, 2, 2, 2, 13)
+    jr = JIndex(jmake_mesh(), raw, block_size=16)
+    jr.build(base, keep_base=False, keep_bits=True, keep_codes=True)
+    jr.save_state(jpath)
+    back = ShardedIndex.restore_state(jpath, mesh, keep_codes=True)
+    for f in ("alpha", "r", "omega"):
+        np.testing.assert_array_equal(
+            getattr(back.bank, f).view(np.uint32),
+            np.asarray(getattr(raw, f)).view(np.uint32), err_msg=f)
+    _assert_tables_equal(jr, back)
+    _assert_state_equal(jr, back)
+    _assert_codes_equal(raw, back.bank, queries)
+    _assert_same(back.scan_route(queries, limit=64),
+                 jr.scan_route(queries, limit=64, approx=False))
+    _assert_same(back.route(queries, probes=3, refinement_limit=128,
+                            rerank_limit=40),
+                 jr.route(queries, probes=3, refinement_limit=128,
+                          rerank_limit=40))
 
 
 def test_mesh_checkpoint_from_bits_only(tmp_path, rng):

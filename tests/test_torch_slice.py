@@ -46,7 +46,7 @@ def pair(tmp_path_factory):
     js.finalize_for_search()
     jb = js.index.bank
     ts = ForwardSecureANNSystem(_cfg(tconfig), str(root / "torch"), D,
-                                query_batch=BATCH)
+                                query_batch=BATCH, device="cpu")
     ts.index.set_bank(bank_from_jax(
         np.asarray(jb.alpha), np.asarray(jb.r), np.asarray(jb.omega), jb.m,
         jb.lam, jb.tables, jb.divisions, jb.seed))
@@ -74,7 +74,7 @@ def test_route_per_batch_is_bit_identical(pair):
 def test_final_results_and_recall_match(pair):
     js, ts, base, queries, _ = pair
     jg = jgt.precompute(base, queries, k=10)
-    tg = tgt.precompute(base, queries, k=10, backend="torch")
+    tg = tgt.precompute(base, queries, k=10, backend="torch", device="cpu")
     # GT ids equal except where distances tie
     d = np.linalg.norm(base[jg.gt] - queries[:, None, :], axis=-1)
     untied = np.ones_like(d, bool)
@@ -125,7 +125,7 @@ def test_restore_rebuilds_identical_index(pair):
               for q in queries[:4]]
     ts.flush_all()
     back = ForwardSecureANNSystem(_cfg(tconfig), str(root / "torch"), D,
-                                  query_batch=BATCH)
+                                  query_batch=BATCH, device="cpu")
     try:
         assert back.restore_index_from_disk() == N
         assert back.index._table_host is not None      # the fast path
@@ -206,13 +206,34 @@ def test_formerly_unported_modes_serve(pair, mode):
                                       err_msg=f)
 
 
-def test_jax_bank_file_is_refused(pair):
-    """A JAX bank.npz stores (omega, r) and the seed, not alpha; the port
-    cannot regenerate threefry's alpha, so it refuses the file instead of
-    encoding with a different bank."""
-    from fspann_tpu_torch.index.service import PartitionedIndex
+def test_jax_store_reopens_in_port_and_serves_jax_ids(pair, tmp_path):
+    """A store the JAX package wrote (``bank.npz`` without alpha,
+    ``table.npz``, keystore, ciphertexts) reopens in the port: alpha
+    regenerates from the seed bit for bit, and the restored system serves
+    the JAX package's ids (distances to float32 round-off, 1e-6)."""
+    import shutil
 
-    _, _, _, _, root = pair
-    with pytest.raises(ValueError, match="bank_from_jax"):
-        PartitionedIndex(_cfg(tconfig), D,
-                         bank_path=str(root / "jax" / "bank.npz"))
+    js, _, _, queries, root = pair
+    js.flush_all()
+    shutil.copytree(root / "jax", tmp_path / "jax")
+    with np.load(tmp_path / "jax" / "bank.npz") as z:
+        assert "alpha" not in z.files
+    back = ForwardSecureANNSystem(_cfg(tconfig), str(tmp_path / "jax"), D,
+                                  query_batch=BATCH, device="cpu")
+    try:
+        jb, tb = js.index.bank, back.index.bank
+        for f in ("alpha", "r", "omega"):
+            np.testing.assert_array_equal(
+                getattr(tb, f).view(np.uint32),
+                np.asarray(getattr(jb, f)).view(np.uint32), err_msg=f)
+        assert back.restore_index_from_disk() == N
+        for s in range(0, NQ, BATCH):
+            jr = js.query_service.search_batch(
+                js.tokens.create_batch(queries[s:s + BATCH], 10))
+            tr = back.query_service.search_batch(
+                back.tokens.create_batch(queries[s:s + BATCH], 10))
+            np.testing.assert_array_equal(tr.ids, jr.ids)
+            np.testing.assert_allclose(tr.distances, jr.distances,
+                                       rtol=1e-6)
+    finally:
+        back.shutdown()
