@@ -40,6 +40,8 @@ Phases (any failure raises and exits non-zero):
      ``code_hamming`` timed on the ids that batch hands it, at Q = 64 and on
      the first 1 and 8 queries' rows, each path beside its bound (distinct
      rows read once); recall@10 >= 0.65 and ratio@100 <= 1.03.
+     ``route_rerank(approx=True)`` over that batch's pool (not reduced at
+     this width) equals the exact route.
      ``--profile`` adds a torch.profiler pass over the served queries;
   9. the packed scan state at phase 4's inputs: built on CUDA == built on
      the CPU, the packed chunked scan == the unpacked flat scan on every
@@ -69,7 +71,10 @@ Phases (any failure raises and exits non-zero):
      when device and host encode agree on every bit, which is printed);
      ``build_stream`` in 100,000-row chunks == the one-shot build; the
      probe route with the re-rank at 4 shards == the same route on CPU
-     copies of the state, with each shard's ``code_hamming`` path; 32
+     copies of the state, with each shard's ``code_hamming`` path;
+     ``scan_route(approx=True)`` at 4 shards, unpacked == packed, keeps a
+     mean share >= 0.98 of the exact route (one ``approx_topk`` launch a
+     shard and batch); 32
      deletes leave every route; 4 ``append_scan_rows`` of 16,384 rows keep
      the storage and are found by self search; ``save_state`` →
      ``restore_state`` reproduces the route; device ms per batch of 64 at
@@ -84,12 +89,23 @@ Phases (any failure raises and exits non-zero):
  15. the five ``examples/torch_*.py`` as a user runs them (their default
      sizes and device, the card), all at once as subprocesses: each exits 0
      and prints its recall gate line (``mesh lifecycle OK`` for the mesh).
+ 16. right after phase 5, on its codes, bank and queries: the approximate
+     top-L kernel (``csrc/approx_topk.cu``, the TPU's ``ApproxTopK`` at
+     recall_target 0.98) against its plain torch twin, bit for bit, in its
+     bins and its selection, with 1% tombstones and Q in {64, 7, 1}, over
+     the flat scan at 1M (r 3), the chunked scan's full chunk and tail (r
+     2), one shard of 4 (r 1) and the re-rank's width (r 0, the exact
+     top-L); timed at [64, 1M] beside the plain twin, the library's bin
+     minimum (``amin``), the exact top-L and its bound; then
+     ``scan(approx=True)`` and ``scan_chunked(approx=True)`` over the 16
+     batches: each keeps a mean share >= 0.98 of the exact top-2,000.
 Phase 5 also checks the bank against the JAX package's for the same seed
 (``JAX_BANK_FINGERPRINT``) and serves a second pass with the 24-bit id
 transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
-Each served path (phases 5, 8, 10, 12, 13 and 14) runs with the kernels' launch
-counts set to 0 just before it and read just after.  The last two lines of
-standard output are the kernels' JSON record and the device JSON line.
+Each served path (phases 5, 8, 10, 12, 13, 14 and 16) runs with the kernels'
+launch counts set to 0 just before it and read just after.  The last two
+lines of standard output are the kernels' JSON record and the device JSON
+line.
 """
 
 from __future__ import annotations
@@ -330,17 +346,20 @@ def phase_scan(dev) -> float:
 
 
 def reset_launches() -> None:
+    from fspann_tpu_torch.ops.approx_topk import partial_reduce
     from fspann_tpu_torch.ops.code_hamming import code_hamming
     from fspann_tpu_torch.ops.l2_topk import l2_topk
 
-    l2_topk.launches = code_hamming.launches = 0
+    l2_topk.launches = code_hamming.launches = partial_reduce.launches = 0
 
 
 def read_launches() -> dict:
+    from fspann_tpu_torch.ops.approx_topk import partial_reduce
     from fspann_tpu_torch.ops.code_hamming import code_hamming
     from fspann_tpu_torch.ops.l2_topk import l2_topk
 
-    return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches}
+    return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches,
+            "approx_topk": partial_reduce.launches}
 
 
 def scan_call(idx, queries):
@@ -517,6 +536,174 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
                               "  phase 5", reps=2)
     torch.cuda.empty_cache()
     return counts, ref, rec, extras
+
+
+APPROX_L = 2000
+APPROX_SHARE_GATE = 0.98      # recall_target of lax.approx_max_k
+
+
+def approx_bound_ms(q: int, c: int, w: int) -> tuple[float, str]:
+    """Least time for the partial reduce: the int32 products, the int32
+    popcounts and the one-byte dead marks read once and the int64 bins
+    written once, against one compare an element at the CUDA cores'
+    float32 peak (the table's only rate outside the tensor cores)."""
+    mem = (4 * q * c + 5 * c + 8 * q * w) / HBM_BYTES
+    ops = q * c / F32_FLOPS
+    return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+
+
+def retained_share(got_ids: np.ndarray, want_ids: np.ndarray) -> np.ndarray:
+    """Per query: the share of the exact route's live ids that the
+    approximate route kept."""
+    out = np.empty(len(want_ids))
+    for i, (g, w) in enumerate(zip(got_ids, want_ids)):
+        w = w[w >= 0]
+        out[i] = len(np.intersect1d(g, w)) / max(1, len(w))
+    return out
+
+
+def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
+    """Phase 16, right after phase 5 on its codes, bank and queries: the
+    approximate top-L (``ops/approx_topk``) kernel against its plain twin,
+    bit for bit, at the shapes its callers give it, timed beside the twin,
+    the library's bin minimum, the exact top-L and its bound; then
+    ``scan(approx=True)`` and ``scan_chunked(approx=True)`` over the 16
+    batches of 64, with the share of the exact top-L that they keep.
+    Returns the path's kernel counts and the kernel's record."""
+    from fspann_tpu_torch.ops import approx_topk as at
+    from fspann_tpu_torch.ops import coding
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    release_earlier_phases()
+    bank = p5["bank"]
+    cb = bank.code_bits
+    state = hs.build_scan_state(p5["codes"], cb, device=dev)
+    qbits = torch.from_numpy(hs.unpack_bits_numpy(
+        coding.encode_numpy(queries, bank)[0], cb)).to(dev)
+    n = state.popc.shape[0]
+    tomb = torch.from_numpy(np.random.default_rng(16).random(n) < 0.01) \
+        .to(dev)
+    # (what, first row, rows): the flat scan at 1M (r 3), the chunked scan's
+    # full chunk and its tail (r 2), one shard of 4 at phase 13's capacity
+    # (r 1), and the probe point's re-rank width, where nothing is reduced
+    shapes = [("flat scan", 0, n), ("full chunk", 0, 1 << 19),
+              ("chunk tail", 1 << 19, n - (1 << 19)),
+              ("shard of 4", 0, SHARD_CAP // 4), ("no reduction", 0, 56_000)]
+    checked = []
+    err = 0
+    for what, lo, c in shapes:
+        w, r = at.reduction_output_size(c, APPROX_L)
+        for q in (64, 7, 1):
+            dots = hs._bit_dots(qbits[:q], state.bits[lo:lo + c])
+            epi = dict(popc=state.popc[lo:lo + c], scale=-2,
+                       dead=tomb[lo:lo + c])
+            sel = at.approx_rank_topk(dots, APPROX_L, lo, **epi)
+            if r == 0:
+                part = (dots * -2 + epi["popc"]).masked_fill(
+                    epi["dead"][None, :], at._DEAD)
+                plain = hs._rank_topk(part, APPROX_L, lo)
+            else:
+                got = at.partial_reduce(dots, w, r, lo, **epi)
+                want = at.partial_reduce_plain(dots, w, r, lo, **epi)
+                require(torch.equal(got, want), (what, q, "bins"))
+                plain = at._smallest(want, APPROX_L)
+                if q == 7:       # the re-rank's epilogue: the values as given
+                    require(torch.equal(at.partial_reduce(dots, w, r, lo),
+                                        at.partial_reduce_plain(dots, w, r,
+                                                                lo)),
+                            (what, q, "bins without epilogue"))
+            for a, b in zip(sel, plain):
+                require(torch.equal(a, b), (what, q, "selection"))
+            err = max(err, int((sel[0] - plain[0]).abs().max()))
+        checked.append(f"{what} [Q, {c}] W={w} r={r}")
+    log(f"phase 16 approx_topk (lax.approx_max_k, recall_target 0.98) at "
+        f"L={APPROX_L} on phase 5's codes, 1% tombstones, Q in (64, 7, 1): "
+        f"kernel == plain twin bit for bit (bins and selection) at "
+        f"{'; '.join(checked)}")
+
+    # times at the flat scan's shape, Q = 64, in turns
+    dots = hs._bit_dots(qbits[:64], state.bits)
+    epi = dict(popc=state.popc, scale=-2, dead=tomb)
+    w, r = at.reduction_output_size(n, APPROX_L)
+    key = at._rank_keys(dots, 0, **epi)
+    key = torch.cat([key, key.new_full((64, (w << r) - n), at.INT64_MAX)],
+                    dim=1)
+    part = (dots * -2 + state.popc).masked_fill(tomb[None, :], at._DEAD)
+    fns = {"plain": lambda: at.partial_reduce_plain(dots, w, r, 0, **epi),
+           "library": lambda: key.view(64, 1 << r, w).amin(dim=1),
+           "kernel": lambda: at.partial_reduce(dots, w, r, 0, **epi),
+           "exact": lambda: hs._rank_topk(part, APPROX_L),
+           "select": lambda: at.approx_rank_topk(dots, APPROX_L, **epi)}
+    turns = {name: [] for name in fns}
+    for name in ("plain", "library", "kernel", "kernel", "library", "plain",
+                 "exact", "select", "select", "exact"):
+        turns[name].append(time_ms(fns[name], reps=5))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    bound, by = approx_bound_ms(64, n, w)
+    del key, part, dots
+    log(f"  [64, {n}] -> W={w} bins (r={r}): kernel {ms['kernel']:.4f} ms "
+        f"(turns {', '.join(f'{t:.4f}' for t in turns['kernel'])}), plain "
+        f"twin {ms['plain']:.3f} ms, library (amin over the padded int64 "
+        f"key, the key's making not timed) {ms['library']:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}, {HBM_BYTES / 1e12:.2f} TB/s), kernel at "
+        f"{bound / ms['kernel']:.1%} of it; whole approximate selection "
+        f"(kernel + topk of the bins) {ms['select']:.4f} ms, exact top-L of "
+        f"the same rank values ({APPROX_L} of {n}, one int64 key) "
+        f"{ms['exact']:.4f} ms")
+
+    # the path: the scan entry points with approx=True over the 16 batches
+    no_tomb = torch.zeros(n, dtype=torch.bool, device=dev)
+    reset_launches()                   # counts from here are the path's
+    runs = {"flat": [], "chunked": [], "exact": []}
+    for s in range(0, Q_SLICE, 64):
+        qb = qbits[s:s + 64]
+        runs["flat"].append(hs.scan(state, qb, no_tomb, APPROX_L,
+                                    approx=True))
+        runs["chunked"].append(hs.scan_chunked(state, qb, no_tomb, APPROX_L,
+                                               approx=True))
+        runs["exact"].append(hs.scan(state, qb, no_tomb, APPROX_L))
+    counts = read_launches()
+    got = {k: tuple(np.concatenate([getattr(x, f).cpu().numpy() for x in v])
+                    for f in ("ids", "scores")) for k, v in runs.items()}
+    require_same(got["exact"], p5["route"], "exact scan vs phase 5's route")
+    # one kernel launch a flat batch, two a chunked one (full chunk + tail)
+    require(counts["approx_topk"] == 3 * Q_SLICE // 64,
+            f"approx_topk launches {counts}")
+    shares = {}
+    for k in ("flat", "chunked"):
+        ids, sc = got[k]
+        require((sc[:, 1:] >= sc[:, :-1]).all(), f"{k}: scores not sorted")
+        require((sc >= got["exact"][1]).all(), f"{k}: a score better than "
+                "the exact top-L's at its rank")
+        share = retained_share(ids, got["exact"][0])
+        shares[k] = share
+        require(share.mean() >= APPROX_SHARE_GATE,
+                f"{k} scan kept {share.mean():.4f} < {APPROX_SHARE_GATE}")
+    qb = qbits[:64]
+    scan_ms = {name: time_ms(fn, reps=5) for name, fn in (
+        ("approx", lambda: hs.scan(state, qb, no_tomb, APPROX_L,
+                                   approx=True)),
+        ("exact", lambda: hs.scan(state, qb, no_tomb, APPROX_L)),
+        ("chunked approx", lambda: hs.scan_chunked(
+            state, qb, no_tomb, APPROX_L, approx=True)),
+        ("chunked exact", lambda: hs.scan_chunked(state, qb, no_tomb,
+                                                  APPROX_L)))}
+    log(f"  scan(approx=True) over the {Q_SLICE // 64} batches: the exact "
+        f"scan == phase 5's route; share of the exact top-{APPROX_L} kept: "
+        f"flat mean {shares['flat'].mean():.6f} min "
+        f"{shares['flat'].min():.6f}, chunked (2^19 rows) mean "
+        f"{shares['chunked'].mean():.6f} min {shares['chunked'].min():.6f} "
+        f"(gate: mean >= {APPROX_SHARE_GATE}); kernel launches on this path "
+        f"{counts}; one batch of 64 (CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in scan_ms.items()))
+    del state, qbits, tomb, no_tomb, runs
+    torch.cuda.empty_cache()
+    return counts, {"max_abs_err": float(err), "ms": ms["kernel"],
+                    "plain_ms": ms["plain"], "library_ms": ms["library"],
+                    "bound_ms": bound, "bound_by": by,
+                    "select_ms": ms["select"], "exact_ms": ms["exact"],
+                    "share_mean": float(shares["flat"].mean()),
+                    "share_min": float(shares["flat"].min())}
 
 
 def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
@@ -736,6 +923,7 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
     from fspann_tpu_torch.ops import coding, partition, routing
     from fspann_tpu_torch.ops import code_hamming as ch_mod
     from fspann_tpu_torch.ops import refine as refine_mod
+    from fspann_tpu_torch.ops.approx_topk import reduction_output_size
     from fspann_tpu_torch.ops.code_hamming import code_hamming
 
     cfg = SystemConfig()
@@ -870,6 +1058,22 @@ def phase_probe_slice(dev, base, queries, profile: bool) -> dict:
         log(f"  first batch at {N_SLICE} rows: CUDA route == CPU route on "
             f"every field ({want.n_raw.float().mean():.0f} live probed ids "
             f"per query before dedup)")
+        # approx=True at the probe point: the re-rank's pool is too narrow
+        # for the TPU's reduction (r == 0), so it is the exact route
+        g, _, block = idx.table.ids.shape
+        width = g * rt.effective_probes() * block
+        wr = reduction_output_size(width, rt.rerank_limit)
+        require(wr[1] == 0, f"the re-rank pool of {width} is reduced: {wr}")
+        approx = routing.route_rerank(
+            idx.table, coding.words_to_torch(qc, dev),
+            torch.from_numpy(qk).to(dev), idx._tombstones(), idx.point_codes,
+            rt.effective_probes(), rt.rerank_limit, approx=True)
+        for f in ("ids", "scores", "n_unique", "n_raw"):
+            require(torch.equal(getattr(approx, f), getattr(got, f)),
+                    ("approx re-rank", f))
+        log(f"  route_rerank(approx=True) over the first batch's pool of "
+            f"{width} (W, r = {wr}: no reduction) == the exact route on "
+            f"every field")
         require(r10 >= 0.65, f"recall@10 {r10} < 0.65")
         require(ratio <= 1.03, f"ratio@100 {ratio} > 1.03")
         if profile:
@@ -1227,6 +1431,7 @@ def phase_sharded(dev, base, queries, work, p5) -> dict:
     from fspann_tpu_torch.ops import code_hamming as ch_mod
     from fspann_tpu_torch.ops import coding, routing
     from fspann_tpu_torch.ops import hamming_scan as hs
+    from fspann_tpu_torch.ops.approx_topk import reduction_output_size
     from fspann_tpu_torch.ops.code_hamming import code_hamming
     from fspann_tpu_torch.parallel.sharded import ShardedIndex, make_mesh
 
@@ -1303,6 +1508,28 @@ def phase_sharded(dev, base, queries, work, p5) -> dict:
                 torch.cuda.empty_cache()
     b4 = kept[4, "packed"]
     lay = {True: "unpacked", "packed": "packed"}
+
+    # approx=True at 4 shards: each shard's top-L selected by the
+    # approx_topk kernel over its own rows (r 1), merged exactly; the
+    # packed layout scans a shard as one chunk, so it selects the same
+    before = read_launches()["approx_topk"]
+    approx = scan_routes(a4, queries, approx=True)
+    require(read_launches()["approx_topk"] == before + 4 * Q_SLICE // 64,
+            "the 4-shard approx scan did not launch approx_topk once per "
+            "shard and batch")
+    require_same(scan_routes(b4, queries, approx=True), approx,
+                 "packed vs unpacked approx scan")
+    share = retained_share(approx[0], want[0])
+    require(share.mean() >= APPROX_SHARE_GATE,
+            f"4-shard approx scan kept {share.mean():.4f}")
+    approx_ms = time_ms(lambda: a4.scan_route_dispatch(batch0, limit=SHARD_L,
+                                                       approx=True), reps=5)
+    log(f"  approx=True at 4 shards ({a4.shard_rows} rows a shard: W, r = "
+        f"{reduction_output_size(a4.shard_rows, SHARD_L)}), unpacked == "
+        f"packed: share of the exact top-{SHARD_L} kept mean "
+        f"{share.mean():.6f} min {share.min():.6f} (gate: mean >= "
+        f"{APPROX_SHARE_GATE}); {approx_ms:.3f} ms per batch of 64 (exact "
+        f"{ms[4, True, 'ici']:.3f})")
     log(f"  scan route of {Q_SLICE} q at L={SHARD_L} == the single-device "
         f"scan, ids and scores, at 1, 4 and 8 shards x unpacked, packed x "
         f"merge on the device, on the host")
@@ -1658,6 +1885,7 @@ def main() -> int:
         log(f"phase 5 corpus {N_SLICE}x128 hard, seed 42: "
             f"{time.perf_counter() - t0:.1f} s")
         scan_counts, ref, rec, p5 = phase_slice(dev, base, queries, work)
+        approx_counts, approx_rec = phase_approx(dev, queries, p5)
         ch_rec = phase_code_hamming(dev)
         phase_probe_equal(dev, base, queries)
         probe_counts = phase_probe_slice(dev, base, queries,
@@ -1674,11 +1902,13 @@ def main() -> int:
         phase_examples()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    paths = (scan_counts, probe_counts, life_counts, cli_counts,
-             shard_counts, mesh_counts)
+    paths = (scan_counts, approx_counts, probe_counts, life_counts,
+             cli_counts, shard_counts, mesh_counts)
     l2_launches = sum(c["l2_topk"] for c in paths)
     require(shard_counts["code_hamming"] > 0, "the sharded probe route did "
             "not run code_hamming")
+    require(shard_counts["approx_topk"] > 0, "the sharded approx scan did "
+            "not run approx_topk")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1691,7 +1921,12 @@ def main() -> int:
         "source": "fspann_tpu_torch/csrc/code_hamming.cu",
         "replaces": "fspann_tpu/ops/routing.py:281",
         "launches": sum(c["code_hamming"] for c in paths),
-        **ch_rec}]}), flush=True)
+        **ch_rec}, {
+        "name": "approx_topk", "route": "cuda",
+        "source": "fspann_tpu_torch/csrc/approx_topk.cu",
+        "replaces": "fspann_tpu/ops/hamming_scan.py:212",
+        "launches": sum(c["approx_topk"] for c in paths),
+        **approx_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,12 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .approx_topk import _DEAD, _rank_topk, approx_rank_topk
 from .coding import words_to_torch
 from .routing import _INF, RouteResult
-
-# dead-entry sentinel for the rank key: far above any real rank value
-# (|part| <= B <= a few thousand); the JAX package's value
-_DEAD = 1 << 30
 
 # byte -> popcount
 _POPC8 = torch.tensor(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
@@ -182,20 +179,6 @@ def _bit_dots(qbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return dots[:q]
 
 
-def _rank_topk(part: torch.Tensor, k: int, row0: int = 0
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` smallest ``(part, row)`` pairs of each row of ``part``
-    (int32 [Q, C]; row ids ``row0 + column``), ascending — the order of
-    ``lax.top_k(-part)``, which keeps the lower index first on ties.
-    Returns (part int32 [Q, k], row int32 [Q, k])."""
-    key = part.to(torch.int64)
-    key <<= 32
-    key |= torch.arange(row0, row0 + part.shape[1], dtype=torch.int64,
-                        device=part.device)
-    key = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    return (key >> 32).to(torch.int32), (key & 0xFFFFFFFF).to(torch.int32)
-
-
 def _adaptive_count(scores: torch.Tensor, anchor: int, margin: int,
                     floor: int, k: int) -> torch.Tensor:
     """Per-query adaptive decrypt budget from the ranked score matrix.
@@ -230,10 +213,26 @@ def _finish(best_sc: torch.Tensor, best_id: torch.Tensor, qbits, n: int,
     return RouteResult(ids, scores, n_live, torch.full_like(n_live, n), n_dec)
 
 
+def _select(dots: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
+            k: int, row0: int, approx: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest ``(popc - 2 * dots, row)`` pairs (``_DEAD`` at
+    ``dead`` columns, rows ``row0 + column``): exact, or approximate with
+    ``approx`` (``ops/approx_topk``: on the card the kernel forms the rank
+    value as it reads the products)."""
+    if approx:
+        return approx_rank_topk(dots, k, row0, popc=popc, scale=-2,
+                                dead=dead)
+    part = dots.mul_(-2).add_(popc)                      # rank key
+    part.masked_fill_(dead[None, :], _DEAD)
+    return _rank_topk(part, k, row0)
+
+
 def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
          limit: int, anchor: int = 0, margin: int = 0,
-         floor: int = 0) -> RouteResult:
-    """Global fine-Hamming ranking: top-``limit`` ids per query, exact.
+         floor: int = 0, *, approx: bool = False) -> RouteResult:
+    """Global fine-Hamming ranking: top-``limit`` ids per query, exact
+    unless ``approx``.
 
     Args:
       state: corpus bit matrix + popcounts.
@@ -243,30 +242,33 @@ def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
       anchor/margin/floor: when ``margin`` > 0, also return a per-query
         adaptive decrypt budget (:func:`_adaptive_count`) in
         ``RouteResult.n_dec``.
+      approx: select with ``approx_topk.approx_rank_topk`` (the TPU's
+        ``lax.approx_max_k`` at recall_target 0.98, the JAX package's
+        default); the port's default is the exact top-L.
     """
     n = state.bits.shape[0]
-    part = _bit_dots(qbits, state.bits).mul_(-2).add_(state.popc)  # rank key
-    part.masked_fill_(tombstones[None, :], _DEAD)
     k = min(limit, n)
-    sc, idx = _rank_topk(part, k)
+    sc, idx = _select(_bit_dots(qbits, state.bits), state.popc, tombstones,
+                      k, 0, approx)
     return _finish(sc, idx, qbits, n, anchor, margin, floor, k)
 
 
 def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
                      popc_c: torch.Tensor, dead_c: torch.Tensor, start: int,
-                     start_c: int, carry: tuple) -> tuple:
+                     start_c: int, carry: tuple, *,
+                     approx: bool = False) -> tuple:
     """One chunked-scan step: score ``bits_c`` (int8 [chunk, B]) against
     ``qbits``, mask dead + tail-duplicate rows (``start_c`` is the clamped
     slice origin; rows with index < ``start`` were already scanned), take
-    the chunk top-k, and 2-key-merge (score, id) into the running carry."""
+    the chunk top-k (approximate over the chunk's own width with
+    ``approx``), and 2-key-merge (score, id) into the running carry."""
     best_sc, best_id = carry
     k = best_sc.shape[1]
     chunk = bits_c.shape[0]
-    part = _bit_dots(qbits, bits_c).mul_(-2).add_(popc_c)    # [Q, chunk]
     ridx = start_c + torch.arange(chunk, dtype=torch.int64,
-                                  device=part.device)
-    part.masked_fill_((dead_c | (ridx < start))[None, :], _DEAD)
-    sc, cid = _rank_topk(part, k, start_c)
+                                  device=popc_c.device)
+    sc, cid = _select(_bit_dots(qbits, bits_c), popc_c,
+                      dead_c | (ridx < start), k, start_c, approx)
     cid = torch.where(sc < _DEAD, cid, torch.full_like(cid, -1))
     # merge with carry: rank (score, id) over the 2k union; dead entries
     # carry id -1, which the signed key orders like the 2-key sort
@@ -279,7 +281,8 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
 
 def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
                 qbits: torch.Tensor, limit: int, chunk: int,
-                code_bits: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                code_bits: int = 0, *, approx: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The running top-k loop of the chunked scan, shared by
     :func:`scan_chunked` and the sharded packed step
     (``parallel/sharded.scan_route_step_fn_packed``): ``rows`` (int8 bits
@@ -304,7 +307,7 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
         bits_c = unpack_bits_device(rows[sl], code_bits) if code_bits > 0 \
             else rows[sl]
         carry = scan_chunk_merge(qbits, bits_c, popc[sl], dead[sl], start,
-                                 start_c, carry)
+                                 start_c, carry, approx=approx)
         del bits_c            # the unpack scratch goes before the next step
     return carry
 
@@ -312,7 +315,7 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
 def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
                  tombstones: torch.Tensor, limit: int, chunk: int = 1 << 19,
                  anchor: int = 0, margin: int = 0, floor: int = 0,
-                 code_bits: int = 0) -> RouteResult:
+                 code_bits: int = 0, *, approx: bool = False) -> RouteResult:
     """:func:`scan` with the corpus processed in ``chunk``-row blocks and a
     running top-L merge (:func:`scan_chunks`) — the [Q, N] rank intermediate
     becomes [Q, chunk], so memory stays flat as N grows.
@@ -320,7 +323,8 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     With a :class:`PackedScanState` (pass ``code_bits``) each chunk's words
     are unpacked on the device right before the bit product; the packed
     words are what stays resident.  The merge orders by (score, id),
-    matching :func:`scan`.
+    matching :func:`scan`.  With ``approx`` each block is selected
+    approximately over its own width and the merge stays exact.
     """
     packed = isinstance(state, PackedScanState)
     if packed and code_bits <= 0:
@@ -329,8 +333,9 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     if n <= chunk:
         st = ScanState(unpack_bits_device(state.words, code_bits),
                        state.popc) if packed else state
-        return scan(st, qbits, tombstones, limit, anchor, margin, floor)
+        return scan(st, qbits, tombstones, limit, anchor, margin, floor,
+                    approx=approx)
     carry = scan_chunks(state.words if packed else state.bits, state.popc,
                         tombstones, qbits, limit, chunk,
-                        code_bits if packed else 0)
+                        code_bits if packed else 0, approx=approx)
     return _finish(*carry, qbits, n, anchor, margin, floor, carry[0].shape[1])

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import coding
+from .approx_topk import _DEAD, approx_rank_topk
 from .code_hamming import code_hamming
 from .hamming import hamming
 from .partition import PartitionTable
@@ -276,12 +277,11 @@ def route_rerank(table: PartitionTable, qcodes: torch.Tensor,
     the card) of the deduped candidates are truncated in (fine, id) order.
 
     ``point_codes``: int32 [N, G, W] (or [N, G·W]) code bit patterns in
-    dense row order.  ``approx=True`` (the TPU's ``approx_max_k``) has no
-    counterpart here and raises ``NotImplementedError``.
+    dense row order.  ``approx=True`` truncates with
+    ``approx_topk.approx_rank_topk`` (the TPU's ``approx_max_k``), binned
+    over each candidate's position in the deduped array, as the JAX
+    package's index is.
     """
-    if approx:
-        raise NotImplementedError("approx=True is the TPU's approx_max_k; "
-                                  "the port truncates exactly")
     q, g, w = qcodes.shape
     sid, _, n_unique, n_raw = _route_dedup(table, qcodes, qkeys,
                                            tombstones, max_probes,
@@ -293,10 +293,17 @@ def route_rerank(table: PartitionTable, qcodes: torch.Tensor,
     fine = code_hamming(pc, qcodes.reshape(q, g * w).contiguous(), sid,
                         ascending=True)
     k = min(limit, sid.shape[-1])
-    key = torch.topk((fine.to(torch.int64) << 32) | sid.to(torch.int64), k,
-                     dim=-1, largest=False, sorted=True).values
-    score = (key >> 32).to(torch.int32)
-    rid = (key & _LOW32).to(torch.int32)
+    if approx:
+        # pads take the JAX package's 2^30 sentinel (its f32-exact stand-in
+        # for INT32_MAX), which still ranks after every real score
+        fa = torch.where(sid != INT32_MAX, fine, _full(fine, _DEAD))
+        score, col = approx_rank_topk(fa, k)
+        rid = sid.gather(1, col.to(torch.int64))
+    else:
+        key = torch.topk((fine.to(torch.int64) << 32) | sid.to(torch.int64),
+                         k, dim=-1, largest=False, sorted=True).values
+        score = (key >> 32).to(torch.int32)
+        rid = (key & _LOW32).to(torch.int32)
     pad = rid == INT32_MAX
     score = torch.where(pad, _full(score, _INF), score)
     rid = torch.where(pad, _full(rid, -1), rid)

@@ -17,8 +17,9 @@ placement matching the index's shards), and a query is:
   stage C  exact L2 + top-k on the host (BLAS)
 
 The reference has no distributed analogue (its only scale-out is N local
-RocksDB shards, common/ShardedMetadataManager.java).  Stage A ranks exactly
-(the port has no approximate top-L).
+RocksDB shards, common/ShardedMetadataManager.java).  Stage A ranks exactly:
+the scan's ``approx`` stays at the port's default, False (the JAX facade
+serves with the TPU's approximate top-L).
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ shard-agnostic: candidate ids are global).
 Order contracts are the single-device modules' (``ops/routing``,
 ``ops/hamming_scan``): ids and scores are int32 (pads INT32_MAX on the way
 to a merge, -1 after it), every (score, id) ranking runs on one int64 key.
-``approx=True`` (the TPU's ``approx_max_k``) has no counterpart and raises;
+``approx=True`` selects each shard's top-L with ``ops/approx_topk`` (the
+TPU's ``approx_max_k``, over the shard's own rows); the merge stays exact and
 the default is the exact top-L.
 """
 
@@ -164,12 +165,6 @@ class _Dispatched:
         if self._host_limit is not None:
             return host_merge_topl(ids, sc, self._host_limit)
         return ids, sc
-
-
-def _approx_refused(approx: bool) -> None:
-    if approx:
-        raise NotImplementedError("approx=True is the TPU's approx_max_k; "
-                                  "the port ranks exactly")
 
 
 class ShardedIndex:
@@ -670,8 +665,8 @@ class ShardedIndex:
         ``merge="host"`` returns the per-shard top-Ls side by side ([Q,
         n*k]) and :func:`host_merge_topl` does the same exact 2-key merge on
         the host — bit-identical results.  A shard with no live row (past
-        ``n_live``, or unprobed) is not scanned: its block is all pads."""
-        _approx_refused(approx)
+        ``n_live``, or unprobed) is not scanned: its block is all pads.
+        ``approx`` selects each shard's top-L approximately over its rows."""
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
         k = min(limit, rows)
@@ -683,12 +678,11 @@ class ShardedIndex:
             def local_topl(s):
                 if s >= shard_cap or s * rows >= n_live:
                     return self._no_live_row(q, k)
-                part = hamming_scan._bit_dots(qbits, self._shard(bits, s)) \
-                    .mul_(-2).add_(self._shard(popc, s))
                 dead = self._dead_rows(s, self._shard(tombs, s), n_live,
                                        shard_cap)
-                part.masked_fill_(dead[None, :], _DEAD)
-                return hamming_scan._rank_topk(part, k)
+                return hamming_scan._select(
+                    hamming_scan._bit_dots(qbits, self._shard(bits, s)),
+                    self._shard(popc, s), dead, k, 0, approx)
 
             return self._scan_blocks(local_topl, qpopc, limit, merge)
 
@@ -705,7 +699,6 @@ class ShardedIndex:
         merge — so only [chunk, B] of unpacked scratch exists at a time
         (the resident state is the 8×-smaller word matrix).  Merge identical
         to the unpacked step."""
-        _approx_refused(approx)
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
         cb = self.bank.code_bits
@@ -723,7 +716,7 @@ class ShardedIndex:
                                        shard_cap)
                 return hamming_scan.scan_chunks(
                     self._shard(words, s), self._shard(popc, s), dead, qbits,
-                    limit, chunk, cb)
+                    limit, chunk, cb, approx=approx)
 
             return self._scan_blocks(local_topl, qpopc, limit, merge)
 

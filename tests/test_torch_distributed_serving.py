@@ -16,7 +16,8 @@ float32, so the two device encoders agree bit for bit whatever their
 summation order
 (tests/test_torch_sharded.py asserts that premise on the codes).  The JAX
 facade serves its scan with ``approx=True``, which XLA:CPU computes exactly;
-the port serves the exact top-L.
+the port's facade serves with its default, ``approx=False``, the exact
+top-L (its ``approx=True`` is exact on the CPU too).
 
 Mirrors tests/test_distributed_serving.py (facade tests) and
 tests/test_i8_storage.py::test_mesh_i8_scan_recall_and_stream_equality."""

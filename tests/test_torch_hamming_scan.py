@@ -340,9 +340,10 @@ def test_scan_chunks_reads_the_tail_once_when_it_can(rng, monkeypatch):
     seen = []
     real = ths.scan_chunk_merge
 
-    def spy(qbits, bits_c, popc_c, dead_c, start, start_c, carry):
+    def spy(qbits, bits_c, popc_c, dead_c, start, start_c, carry, **kw):
         seen.append((start, start_c, bits_c.shape[0]))
-        return real(qbits, bits_c, popc_c, dead_c, start, start_c, carry)
+        return real(qbits, bits_c, popc_c, dead_c, start, start_c, carry,
+                    **kw)
 
     monkeypatch.setattr(ths, "scan_chunk_merge", spy)
     for tail, want_last in ((LIMIT, (384, 384, LIMIT)),

@@ -181,9 +181,9 @@ def test_load_table_rejects_mismatched_point_codes(tmp_path, corpus):
 
 
 def test_route_rerank_pads_rank_last(rng):
-    """Pad slots score INT32_MAX and rank after every live candidate.  The
-    JAX test runs ``approx=True`` (the TPU's approx_max_k), which the port
-    refuses (ROADMAP B10); the exact route is held against JAX's."""
+    """Pad slots score INT32_MAX and rank after every live candidate, with
+    ``approx=True`` as the JAX test runs it (pads take the 2^30 sentinel
+    there, not INT32_MAX) and with the exact default; both equal JAX's."""
     n, d = 300, 24
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
     jb = jcoding.build_bank_from_sample(base[:256], 10, 2, 2, 2, 3)
@@ -197,25 +197,27 @@ def test_route_rerank_pads_rank_last(rng):
     jt = jpartition.build_partitions(jnp.transpose(jk, (1, 0)),
                                      jnp.transpose(jc, (1, 0, 2)), 16)
     jqc, jqk = jcoding.encode(jnp.asarray(queries), jb)
-    want = jrouting.route_rerank(jt, jqc, jqk, jnp.asarray(tomb),
-                                 jnp.asarray(jc), 2, 64, approx=False)
 
     c, k = coding.encode(torch.from_numpy(base), bank)
     t = partition.build_partitions(k.T.contiguous(),
                                    c.transpose(0, 1).contiguous(), 16)
     qc, qk = coding.encode(torch.from_numpy(queries), bank)
     args = (t, qc, qk, torch.from_numpy(tomb), c, 2, 64)
-    with pytest.raises(NotImplementedError):
-        routing.route_rerank(*args, approx=True)
-    res = routing.route_rerank(*args)
-    ids, scores = res.ids.numpy(), res.scores.numpy()
-    np.testing.assert_array_equal(ids, np.asarray(want.ids))
-    np.testing.assert_array_equal(scores, np.asarray(want.scores))
-    assert (scores[ids < 0] == np.iinfo(np.int32).max).all()
-    for qi in range(ids.shape[0]):
-        live = np.flatnonzero(ids[qi] >= 0)
-        if len(live):
-            assert live.max() == len(live) - 1, "pad ranked above live"
+    for approx in (True, False):
+        want = jrouting.route_rerank(jt, jqc, jqk, jnp.asarray(tomb),
+                                     jnp.asarray(jc), 2, 64, approx=approx)
+        res = routing.route_rerank(*args, approx=approx)
+        ids, scores = res.ids.numpy(), res.scores.numpy()
+        np.testing.assert_array_equal(ids, np.asarray(want.ids))
+        np.testing.assert_array_equal(scores, np.asarray(want.scores))
+        np.testing.assert_array_equal(res.n_unique.numpy(),
+                                      np.asarray(want.n_unique))
+        assert (scores[ids < 0] == np.iinfo(np.int32).max).all()
+        assert (ids < 0).any(), "no pad slot to rank"
+        for qi in range(ids.shape[0]):
+            live = np.flatnonzero(ids[qi] >= 0)
+            if len(live):
+                assert live.max() == len(live) - 1, "pad ranked above live"
 
 
 @pytest.mark.parametrize("enabled", [True, False])

@@ -191,15 +191,33 @@ def test_route_matches_oracle(rng):
         assert got == expected, f"q={qi}"
 
 
-def test_route_rerank_approx_is_refused(rng):
-    base, jb, codes, keys, jt, tt = _setup(rng, 200, 10, 2, 16, False)
-    qc, qk = _queries(rng, base, jb, 2)
-    with pytest.raises(NotImplementedError):
-        routing.route_rerank(tt, coding.words_to_torch(qc),
-                             torch.from_numpy(qk),
-                             torch.zeros(200, dtype=torch.bool),
-                             coding.words_to_torch(codes), 2, 10,
-                             approx=True)
+@pytest.mark.parametrize("limit", [10, 150, 10_000])
+def test_route_rerank_approx_is_refused(rng, limit):
+    """``approx=True`` (refused before the port had an approximate top-L)
+    equals the JAX package's ``approx=True`` on the CPU, where both select
+    exactly; with tombstones, and limits below and above the deduped pool.
+
+    Where the limit covers the whole pool (k equals the row's length)
+    XLA:CPU's approx_max_k sorts without keeping the lower index first
+    among ties, so there the ids are compared as (score, id) sets, and
+    every other field bit for bit."""
+    base, jb, codes, keys, jt, tt = _setup(rng, 400, 10, 2, 16, False)
+    qc, qk = _queries(rng, base, jb, 5)
+    tomb = rng.random(400) < 0.2
+    got = routing.route_rerank(tt, coding.words_to_torch(qc),
+                               torch.from_numpy(qk), torch.from_numpy(tomb),
+                               coding.words_to_torch(codes), 3, limit,
+                               approx=True)
+    want = jrouting.route_rerank(
+        jt, jnp.asarray(qc), jnp.asarray(qk), jnp.asarray(tomb),
+        jnp.asarray(codes), 3, limit, approx=True)
+    if limit < got.ids.shape[1]:
+        _assert_route_equal(got, want)
+        return
+    _assert_route_equal(got, want, ("scores", "n_unique", "n_raw"))
+    for g, w, s in zip(got.ids.numpy(), np.asarray(want.ids),
+                       got.scores.numpy()):
+        assert sorted(zip(s, g)) == sorted(zip(s, w))
 
 
 @pytest.mark.parametrize("c", [1, 12, 96])

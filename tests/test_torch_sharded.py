@@ -12,7 +12,8 @@ vectors are multiples of 1/16 and the bank's ``alpha`` is rounded to
 multiples of 2^-10 (|sum of 16..32 products| < 2^10, 14 fractional bits).
 Each test asserts the CODES equal first; every integer output downstream
 (stacked tables, ids, scores) is then compared bit for bit, with
-``approx=False`` on the JAX side (the port has no approximate top-L).
+``approx=False`` on the JAX side (the port's default; both packages'
+``approx=True`` are compared in tests/test_torch_approx_topk.py).
 ``query`` distances: squared differences of grid points are exact too, so
 ids are equal including ties (both sides keep the lower candidate position)
 and distances agree to 1e-6 relative (the JAX tests allow 1e-4).
@@ -682,19 +683,26 @@ def test_sharded_scan_equals_single_device_scan(nd, n):
 
 
 def test_approx_raises_and_defaults_to_exact(rng):
+    """Every sharded scan entry takes ``approx=True`` (refused before the
+    port had an approximate top-L) and, on the CPU, where it selects
+    exactly, returns the default's exact route; nothing raises."""
     base = _grid(rng.normal(size=(256, 8)) * 3)
     _, bank = _banks(base, m=6, lam=2, tables=2, divisions=2)
+    n_live = torch.tensor(256)
     for layout in (True, "packed"):
         idx = ShardedIndex(make_mesh(2, "cpu"), bank)
         idx.build(base, keep_base=False, keep_bits=layout)
-        for call in (lambda: idx.scan_route(base[:2], limit=8, approx=True),
-                     lambda: idx.scan_route_dispatch(base[:2], limit=8,
-                                                     approx=True),
-                     lambda: idx.scan_route_step_fn(8, approx=True),
-                     lambda: idx.scan_route_step_fn_packed(8, approx=True)):
-            with pytest.raises(NotImplementedError, match="approx"):
-                call()
-        assert idx.scan_route(base[:2], limit=8)[0].shape == (2, 8)
+        exact = idx.scan_route(base[:2], limit=8)
+        assert exact[0].shape == (2, 8)
+        args = (idx.words if layout == "packed" else idx.bits, idx.popc,
+                idx.tombs, idx._queries(base[:2]), int(n_live))
+        step = (idx.scan_route_step_fn_packed if layout == "packed"
+                else idx.scan_route_step_fn)(8, approx=True)
+        for got in (idx.scan_route(base[:2], limit=8, approx=True),
+                    idx.scan_route_dispatch(base[:2], limit=8,
+                                            approx=True).get(),
+                    tuple(x.numpy() for x in step(*args))):
+            _assert_same(got, exact, layout)
     bare = ShardedIndex(make_mesh(2, "cpu"), bank)
     bare.build(base, keep_base=False)
     with pytest.raises(RuntimeError, match="keep_bits"):
