@@ -99,10 +99,23 @@ Phases (any failure raises and exits non-zero):
      minimum (``amin``), the exact top-L and its bound; then
      ``scan(approx=True)`` and ``scan_chunked(approx=True)`` over the 16
      batches: each keeps a mean share >= 0.98 of the exact top-2,000.
+ 17. right after phase 14: the sharded index and the facade at phase 13's
+     point with the 4 shards spread over min(4, cards) cards, one slot a
+     card (2 cards on a host of 3), or over 4 slots on cuda:0 on a host of
+     one card: each resident array one tensor a slot on the slot's card;
+     every scan route of the 1,024 queries (unpacked, packed x approx off,
+     on x merge on the first card, on the host) and the first batch's probe
+     route with the re-rank equal to phase 13's one-slot results; one
+     dispatch of each step under ``torch.cuda.set_sync_debug_mode("error")``
+     up to ``get()``; the facade over the same slots serves phase 14's ids
+     and distances; then ``approx_topk``, ``code_hamming`` (both paths) and
+     ``l2_topk`` against their plain twins on every distinct card, on this
+     path's inputs.  Printed: the cards, peer access between them, device
+     ms per batch (CUDA events on every card), peak memory per card.
 Phase 5 also checks the bank against the JAX package's for the same seed
 (``JAX_BANK_FINGERPRINT``) and serves a second pass with the 24-bit id
 transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
-Each served path (phases 5, 8, 10, 12, 13, 14 and 16) runs with the kernels'
+Each served path (phases 5, 8, 10, 12, 13, 14, 16 and 17) runs with the kernels'
 launch counts set to 0 just before it and read just after.  The last two
 lines of standard output are the kernels' JSON record and the device JSON
 line.
@@ -1403,6 +1416,8 @@ def phase_cli(base, queries, work) -> dict:
     return counts
 
 SHARD_L, SHARD_CAP = 2000, N_SLICE + 65_536
+# the probe point of phases 13 and 17: 16 probes, re-rank to L
+SHARD_PROBE = dict(probes=16, refinement_limit=56_000, rerank_limit=SHARD_L)
 _POPC8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1) \
     .sum(axis=1)
 
@@ -1425,8 +1440,11 @@ def scan_routes(idx, queries, **kw) -> tuple[np.ndarray, np.ndarray]:
     return tuple(np.concatenate([o[i] for o in out]) for i in (0, 1))
 
 
-def phase_sharded(dev, base, queries, work, p5) -> dict:
-    """Phase 13: the sharded index at 1M on the card."""
+def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
+    """Phase 13: the sharded index at 1M on the card.  Returns the kernel
+    counts and what phase 17 compares with: the exact and the approximate
+    scan route of every query at 4 shards and the first batch's probe
+    route with the re-rank."""
     from fspann_tpu_torch.io import synthetic
     from fspann_tpu_torch.ops import code_hamming as ch_mod
     from fspann_tpu_torch.ops import coding, routing
@@ -1579,7 +1597,7 @@ def phase_sharded(dev, base, queries, work, p5) -> dict:
         paths.append(ch_mod.choose_path(*ids.shape, *pc.shape, ascending))
         return code_hamming(pc, qcodes, ids, ascending)
 
-    probe = dict(probes=16, refinement_limit=56_000, rerank_limit=SHARD_L)
+    probe = SHARD_PROBE
     routing.code_hamming = hamming_spy
     before = read_launches()["code_hamming"]
     try:
@@ -1690,13 +1708,15 @@ def phase_sharded(dev, base, queries, work, p5) -> dict:
         f"launches on this path {counts}")
     del back, b4
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"scan": want, "approx": approx, "probe": got}
 
 
-def phase_distributed(dev, base, queries, work, p5, ref) -> dict:
+def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
+                                                                 tuple]:
     """Phase 14: the distributed encrypted facade at 1M, scan mode, 4
     shards, through ``build`` (the one-shot build: the bank's sample is
-    phase 5's, the first 100,000 stored rows)."""
+    phase 5's, the first 100,000 stored rows).  Returns the kernel counts
+    and the served ids and distances (phase 17 compares with them)."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth, synthetic
     from fspann_tpu_torch.parallel.serving import DistributedEncryptedSystem
@@ -1816,6 +1836,218 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> dict:
         f"restore_index {t_restore:.2f} s serves the same ids and "
         f"distances, deletes re-derived from the stores")
     torch.cuda.empty_cache()
+    return counts, got
+
+
+def multislot_mesh():
+    """Phase 17's mesh: 4 shards over min(4, cards) cards (a count that
+    divides 4), one slot a card, or 4 slots on the one card."""
+    from fspann_tpu_torch.parallel.sharded import make_mesh
+
+    cards = max(c for c in (4, 2, 1) if c <= torch.cuda.device_count())
+    slots = [f"cuda:{i}" for i in range(cards)] if cards > 1 \
+        else ["cuda:0"] * 4
+    return make_mesh(4, devices=slots)
+
+
+def time_ms_cards(fn, devices, reps: int = 5) -> float:
+    """Mean time of ``fn`` over ``reps`` calls that queue work on several
+    cards: CUDA events on every card's current stream, the longest span."""
+    spans = []
+    for d in devices:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(d))
+        spans.append((d, start, torch.cuda.Event(enable_timing=True)))
+    for _ in range(reps):
+        fn()
+    for d, _start, end in spans:
+        end.record(torch.cuda.current_stream(d))
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return max(start.elapsed_time(end) for _d, start, end in spans) / reps
+
+
+def phase_multislot(base, queries, work, refs) -> dict:
+    """Phase 17: the sharded index and the facade with their shards on
+    their own cards (:func:`multislot_mesh`), held to phases 13 and 14's
+    one-slot results: per-slot state, every scan route (unpacked, packed x
+    approx off, on x merge on the first card, on the host), the probe
+    route with the re-rank, one dispatch of each step under
+    ``set_sync_debug_mode("error")`` (no host sync before ``get()``), the
+    facade's served ids and distances; then each kernel against its plain
+    twin on every distinct card, on inputs of this path."""
+    from fspann_tpu_torch.ops import hamming_scan as hs
+    from fspann_tpu_torch.ops import routing
+    from fspann_tpu_torch.ops.approx_topk import (partial_reduce,
+                                                  partial_reduce_plain,
+                                                  reduction_output_size)
+    from fspann_tpu_torch.ops.code_hamming import (code_hamming,
+                                                   code_hamming_gather,
+                                                   code_hamming_plain,
+                                                   code_hamming_sweep)
+    from fspann_tpu_torch.ops.l2_topk import l2_topk
+    from fspann_tpu_torch.ops.refine import bruteforce_topk
+    from fspann_tpu_torch.parallel.serving import DistributedEncryptedSystem
+    from fspann_tpu_torch.parallel.sharded import ShardedIndex
+
+    mesh = multislot_mesh()
+    devs = mesh.devices
+    peer = {f"{a.index}->{b.index}": torch.cuda.can_device_access_peer(
+        a.index, b.index) for a in devs for b in devs if a != b}
+    base_q = f16_round_trip(base)
+    batch0 = queries[:64]
+    release_earlier_phases()
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    reset_launches()                   # counts from here are the path's
+    idx, secs = {}, {}
+    for layout in (True, "packed"):
+        t = ShardedIndex(mesh, refs["bank"], block_size=128)
+        t0 = time.perf_counter()
+        t.build(base_q, keep_base=False, keep_codes=layout is True,
+                keep_bits=layout, capacity=SHARD_CAP)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        secs[layout] = time.perf_counter() - t0
+        for name in ("popc", "tombs", "words" if layout == "packed"
+                     else "bits"):
+            parts = t._per_device(getattr(t, name))
+            require([p.device for p in parts] == list(mesh.slots)
+                    and all(len(p) == t.shard_rows * mesh.shards_per_slot
+                            for p in parts), f"{name}: not one tensor a slot")
+        idx[layout] = t
+    lay = {True: "unpacked", "packed": "packed"}
+    ms = {}
+    for layout, t in idx.items():
+        for merge in ("ici", "host"):
+            t.merge_backend = merge
+            for approx in (False, True):
+                require_same(scan_routes(t, queries, approx=approx),
+                             refs["approx" if approx else "scan"],
+                             f"{len(devs)} card(s), {lay[layout]}, merge "
+                             f"{merge}, approx {approx}")
+            ms[layout, merge] = time_ms_cards(
+                lambda: t.scan_route_dispatch(batch0, limit=SHARD_L), devs)
+        t.merge_backend = "ici"
+    a4 = idx[True]
+    hamming_calls = []
+
+    def hamming_spy(pc, qcodes, ids, ascending=False):
+        hamming_calls.append((pc, qcodes, ids))
+        return code_hamming(pc, qcodes, ids, ascending)
+
+    routing.code_hamming = hamming_spy
+    try:
+        require_same(a4.route(batch0, **SHARD_PROBE), refs["probe"],
+                     "probe route with the re-rank")
+    finally:
+        routing.code_hamming = code_hamming
+    require([c[2].device for c in hamming_calls]
+            == [a4._slot_device(s) for s in range(4)],
+            "code_hamming not on each shard's card")
+    probe_ms = time_ms_cards(lambda: a4.route_dispatch(batch0, **SHARD_PROBE),
+                             devs, reps=3)
+    # no host sync between the first launch and get(): the step queues every
+    # slot's work, the gather and the host copies
+    for d in devs:
+        torch.cuda.synchronize(d)
+    a4.merge_backend = "host"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [(t.scan_route_dispatch(batch0, limit=SHARD_L, approx=ap),
+                    refs["approx" if ap else "scan"], f"{lay[la]} {ap}")
+                   for la, t in idx.items() for ap in (False, True)]
+        pending.append((a4.route_dispatch(batch0, **SHARD_PROBE),
+                        refs["probe"], "probe"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    a4.merge_backend = "ici"
+    for d, want, what in pending:
+        got = d.get()
+        require_same(got, tuple(x[:64] for x in want) if what != "probe"
+                     else want, f"dispatched under sync debug: {what}")
+    counts = read_launches()
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in devs]
+
+    # the kernels against their plain twins on every card, on this path's
+    # inputs: a shard's bit products and dead rows (approx_topk), the
+    # re-rank's calls (code_hamming), and a base on the card (l2_topk)
+    rows = a4.shard_rows
+    checked = []
+    for d in devs:
+        s = next(s for s in range(4) if a4._slot_device(s) == d)
+        qbits = a4._query_bits(a4._queries(batch0), d)[0]
+        dots = hs._bit_dots(qbits, a4._shard(a4.bits, s))
+        dead = a4._dead_rows(s, a4._shard(a4.tombs, s), a4.n, 4)
+        w, r = reduction_output_size(rows, SHARD_L)
+        popc = a4._shard(a4.popc, s)
+        require(torch.equal(partial_reduce(dots, w, r, 0, popc, -2, dead),
+                            partial_reduce_plain(dots, w, r, 0, popc, -2,
+                                                 dead)),
+                f"approx_topk on {d}")
+        pc, qc, ids = hamming_calls[s]
+        want = code_hamming_plain(pc, qc, ids)
+        for path in (code_hamming_gather, code_hamming_sweep):
+            require(torch.equal(path(pc, qc, ids), want),
+                    f"code_hamming {path.__name__} on {d}")
+        gen = torch.Generator(device=d).manual_seed(d.index or 0)
+        b = torch.randn((262_144, 128), generator=gen, device=d)
+        q = torch.randn((64, 128), generator=gen, device=d)
+        err = check_topk(b, q, *l2_topk(b, q, 100), *bruteforce_topk(b, q,
+                                                                     100))
+        checked.append(f"{d}: approx_topk [{dots.shape[0]}, {rows}] == "
+                       f"plain; code_hamming gather, sweep [{ids.shape[0]}, "
+                       f"{ids.shape[1]}] of {pc.shape[0]} rows == plain; "
+                       f"l2_topk 262144x128, 64 q, K=100: max |err| "
+                       f"{err:.3e}")
+        del dots, b, q
+    del idx, a4, t, hamming_calls
+    release_earlier_phases()
+
+    # the facade over the same slots serves phase 14's ids and distances
+    sys_ = DistributedEncryptedSystem(slice_cfg(),
+                                      os.path.join(work, "multislot_db"),
+                                      128, mesh=mesh)
+    try:
+        t0 = time.perf_counter()
+        sys_.build(base, sample=100_000, capacity=SHARD_CAP)
+        t_build = time.perf_counter() - t0
+        require(len(sys_.index._per_device(sys_.index.bits))
+                == len(mesh.slots), "facade state not one tensor a slot")
+        sys_.search_batch(batch0, 100)                    # warm-up
+        t0 = time.perf_counter()
+        res = sys_.search_batches([queries[s:s + 64]
+                                   for s in range(0, Q_SLICE, 64)], 100)
+        wall = time.perf_counter() - t0
+    finally:
+        sys_.close()
+    served = tuple(np.concatenate([r[i] for r in res]) for i in (0, 1))
+    require_same(served, refs["facade"], "facade over the slots vs phase 14")
+    del sys_
+    release_earlier_phases()
+    log(f"phase 17 sharded index and facade over slots {list(mesh.slots)}: "
+        f"{len(devs)} distinct card(s) {[str(d) for d in devs]}, peer "
+        f"access {peer or 'n/a (one card)'}; gather for the merge on the "
+        f"first card: peer copies of the shards' blocks")
+    log(f"  every scan route of the {Q_SLICE} q at L={SHARD_L} (unpacked, "
+        f"packed x approx off, on x merge on the first card, on the host) "
+        f"and the probe route with the re-rank == the one-slot mesh's; "
+        f"one dispatch of each step under set_sync_debug_mode('error'): no "
+        f"host sync before get(); the facade served phase 14's ids and "
+        f"distances ({Q_SLICE / wall:.1f} q/s, build {t_build:.1f} s)")
+    log("  build s: " + ", ".join(f"{lay[la]} {v:.2f}"
+                                  for la, v in secs.items())
+        + "; device ms per batch of 64 (CUDA events on every card, the "
+        "longest span; query upload, device encode, per-shard scan, "
+        "gather, merge, pinned copy): " + "; ".join(
+            f"{lay[la]} {ms[la, 'ici']:.3f} (host merge "
+            f"{ms[la, 'host']:.3f})" for la in lay)
+        + f"; probe route with the re-rank {probe_ms:.3f}")
+    log("  peak device memory GiB per card: " + ", ".join(
+        f"{d} {p:.2f}" for d, p in zip(devs, peaks))
+        + f"; kernel launches on this path {counts}")
+    for line in checked:
+        log(f"  {line}")
     return counts
 
 
@@ -1895,20 +2127,26 @@ def main() -> int:
                                                   ref, p5)
         phase_native(work, queries, cuda_route)
         cli_counts = phase_cli(base, queries, work)
-        shard_counts = phase_sharded(dev, base, queries, work, p5)
-        mesh_counts = phase_distributed(dev, base, queries, work, p5, ref)
-        del base, queries, ref, p5
+        shard_counts, p13 = phase_sharded(dev, base, queries, work, p5)
+        mesh_counts, p14 = phase_distributed(dev, base, queries, work, p5,
+                                             ref)
+        multi_counts = phase_multislot(base, queries, work, {
+            **p13, "facade": p14, "bank": p5["bank"]})
+        del base, queries, ref, p5, p13, p14
         release_earlier_phases()
         phase_examples()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = (scan_counts, approx_counts, probe_counts, life_counts,
-             cli_counts, shard_counts, mesh_counts)
+             cli_counts, shard_counts, mesh_counts, multi_counts)
     l2_launches = sum(c["l2_topk"] for c in paths)
     require(shard_counts["code_hamming"] > 0, "the sharded probe route did "
             "not run code_hamming")
     require(shard_counts["approx_topk"] > 0, "the sharded approx scan did "
             "not run approx_topk")
+    require(multi_counts["approx_topk"] > 0
+            and multi_counts["code_hamming"] > 0, "phase 17 did not run "
+            "approx_topk and code_hamming")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -4,9 +4,9 @@ Demonstrates ``DistributedEncryptedSystem`` (``examples/mesh_serving.py``
 on ``fspann_tpu_torch``): streaming encrypted build, scan queries with the
 merge on the device, live insertion, deletion/undelete, forced key rotation
 with partial migration, storage compaction, and checkpoint/restore.  The
-port's mesh is a shard count on one torch device, so the 8 shards are row
-ranges of one resident tensor on the card (or on the CPU with
-``--device cpu``).
+8 shards share one device slot here (``make_mesh(8, device)``): row ranges
+of one resident tensor on the card (or on the CPU with ``--device cpu``);
+``make_mesh(8)`` would spread them over the visible cards.
 
 Run:  python examples/torch_mesh_serving.py [--device cpu]
 """
@@ -46,7 +46,9 @@ def main(device="cuda"):
     try:
         sys_ = DistributedEncryptedSystem(cfg, work, d,
                                           mesh=make_mesh(8, device))
-        print(f"mesh: {sys_.ndev} shards on {sys_.mesh.device}")
+        mesh = sys_.mesh
+        print(f"mesh: {sys_.ndev} shards over {len(mesh.slots)} slot(s) on "
+              f"{', '.join(map(str, mesh.devices))}")
 
         # 1. streaming encrypted build (corpus never materialized)
         total = sys_.index_stream(

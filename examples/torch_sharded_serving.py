@@ -1,9 +1,10 @@
 """Sharded serving demo on the PyTorch port: corpus-sharded routing + merged
-top-k.  A mesh is a shard count on one device (``make_mesh``): here one
-shard per visible CUDA device on the card, one on the CPU.
+top-k.  By default the mesh is one shard on each visible CUDA card
+(``make_mesh()``), merged on the first; ``--device`` puts every shard on
+one device instead (one shard per visible CUDA card on a card, one on the
+CPU).
 
 Usage: python examples/torch_sharded_serving.py [n] [d] [q] [--device cpu]
-(default device: the CUDA card)
 """
 
 import argparse
@@ -20,7 +21,7 @@ from fspann_tpu_torch.ops import coding, refine
 from fspann_tpu_torch.parallel.sharded import ShardedIndex, make_mesh
 
 
-def main(n=100_000, d=64, q=64, k=10, device="cuda"):
+def main(n=100_000, d=64, q=64, k=10, device=None):
     rng = np.random.default_rng(11)
     centers = rng.normal(size=(256, d)).astype(np.float32) * 6
     base = centers[rng.integers(0, 256, n)] + \
@@ -28,8 +29,9 @@ def main(n=100_000, d=64, q=64, k=10, device="cuda"):
     queries = centers[rng.integers(0, 256, q)] + \
         rng.normal(size=(q, d)).astype(np.float32)
 
-    mesh = make_mesh(device=device)
-    print(f"mesh: {mesh.n_shards} shards on {mesh.device}")
+    mesh = make_mesh() if device is None else make_mesh(device=device)
+    print(f"mesh: {mesh.n_shards} shards over {len(mesh.slots)} slot(s) on "
+          f"{', '.join(map(str, mesh.devices))}")
     bank = coding.build_bank_from_sample(base[:2000], m=16, lam=2, tables=4,
                                          divisions=2, seed=13)
     idx = ShardedIndex(mesh, bank)
@@ -58,7 +60,9 @@ def main(n=100_000, d=64, q=64, k=10, device="cuda"):
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("sizes", nargs="*", type=int, help="n d q")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None,
+                   help="one device for every shard (default: one shard "
+                        "on each visible CUDA card)")
     a = p.parse_args()
     r = main(*a.sizes[:3], device=a.device)
     sys.exit(0 if r > 0.8 else 1)

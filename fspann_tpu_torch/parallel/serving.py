@@ -10,9 +10,9 @@ holds shard-aligned encrypted arenas (``ShardedPointStore``, range
 placement matching the index's shards), and a query is:
 
   stage A  per-shard routing + merge (``ShardedIndex.route`` /
-           ``scan_route`` — candidate ids only leave the device; the merge
-           runs where ``runtime.mesh_merge`` says: "ici" on the device,
-           "host" on the host)
+           ``scan_route`` — candidate ids only leave the devices; the merge
+           runs where ``runtime.mesh_merge`` says: "ici" on the first
+           card, after a peer-copy gather, "host" on the host)
   stage B  batched multi-key AES-GCM opens from the shard arenas
   stage C  exact L2 + top-k on the host (BLAS)
 
@@ -44,12 +44,15 @@ class DistributedEncryptedSystem:
     def __init__(self, cfg: SystemConfig, base_dir: str, dim: int,
                  mesh=None, key_manager: KeyManager | None = None,
                  device=None):
-        """``mesh`` defaults to ``make_mesh(device=device)``: the shards of
-        one device, the CUDA card unless ``device`` names another."""
+        """``mesh`` defaults to one shard on each visible CUDA card
+        (``make_mesh()``, the JAX facade's mesh of every chip), or to the
+        shards of one device when ``device`` names it
+        (``make_mesh(device=device)``)."""
         self.cfg = cfg
         self.dim = dim
         self.base_dir = base_dir
-        self.mesh = mesh or make_mesh(device=device)
+        self.mesh = mesh or (make_mesh() if device is None
+                             else make_mesh(device=device))
         self.ndev = self.mesh.n_shards
         os.makedirs(base_dir, exist_ok=True)
         self.km = key_manager if key_manager is not None else KeyManager(
@@ -87,16 +90,20 @@ class DistributedEncryptedSystem:
     def _scan_layout(self, shard_rows: int):
         """The configured scan-state layout (runtime.scan_packed →
         keep_bits value): False off scan mode; True unpacked; "packed" the
-        word layout with 8× fewer resident bytes; auto decides from the
-        device's free memory, which every shard shares."""
+        word layout with 8× fewer resident bytes; auto packs when the rows
+        of any one device (the shards of every slot it holds) would not
+        fit its free memory unpacked."""
         rt = self.cfg.runtime
         if rt.routing_mode != "scan":
             return False
         pp = self.cfg.paper
+        slot_rows = shard_rows * self.mesh.shards_per_slot
         # resolve_scan_layout understands "on"/"off"/"auto" verbatim
-        return resolve_scan_layout(rt.scan_packed, shard_rows * self.ndev,
-                                   pp.num_groups * pp.code_bits,
-                                   device=self.mesh.device)
+        layouts = [resolve_scan_layout(
+            rt.scan_packed, slot_rows * self.mesh.slots.count(dev),
+            pp.num_groups * pp.code_bits, device=dev)
+            for dev in self.mesh.devices]
+        return "packed" if "packed" in layouts else layouts[0]
 
     def build(self, base: np.ndarray, sample: int = 1000,
               capacity: int | None = None) -> None:

@@ -13,21 +13,35 @@ shard:
 * one merge over the shards' blocks yields the global top-K.  The merged
   payload is ``n * Q * K`` ids and scores — tiny next to the sharded state.
 
-**The mesh on one card.**  The JAX package places each shard on its own
-device of a ``jax.sharding.Mesh``.  The port serves from ONE torch device:
-a :class:`Mesh` is a shard count and that device, every array is ONE
-resident tensor whose leading axis holds the shards' row ranges back to back
-(``bits [rows * n, B]``, ``words``, ``popc``, ``tombs``, ``point_codes``,
-``base``), and a shard is a view of its range, never a copy.  The shards run
-one after another on the device's stream, so ``n`` shards cost ``n`` times
-the launches of one; the per-shard tables are stacked ``[n, G, P, ...]`` as
-in the JAX package, which keeps the checkpoint and the table layout one.
+**The mesh.**  A :class:`Mesh` is an ordered tuple of device *slots* with
+the ``n`` shards spread over them in contiguous, equal groups: shard ``s``
+lives on slot ``s // (n // len(slots))`` and its global row ids are ``s *
+rows + local``, the layout of the JAX package's mesh over its devices in
+order.  A slot is a torch device, and two slots may name the same one (the
+CPU tests emulate an 8-device mesh so; one card runs the multi-slot code
+so).  Every resident array (``bits``, ``words``, ``popc``, ``tombs``,
+``point_codes``, ``base``, and the per-shard partition tables stacked ``[n
+per slot, G, P, ...]``) is ONE tensor per slot holding that slot's shards
+back to back, on the slot's device; a shard is a view of its range, never
+a copy.  On a one-slot mesh the attribute is that tensor; on several slots
+it is the tuple of them in slot order (:meth:`ShardedIndex._per_device`
+gives the list either way, :meth:`ShardedIndex._gather_host` the host
+concatenation).
 
-The merge keeps its configured names (``runtime.mesh_merge``): ``"ici"`` is
-the merge ON THE DEVICE (the JAX package gathers over the chip interconnect
-first; on one card the blocks are already there), ``"host"`` copies the
-per-shard blocks to the host and merges them there
-(:func:`host_merge_topl`).  Both give the same bits.
+A step replicates the queries to every distinct device and encodes them
+there (the JAX package's ``P(None)`` queries), then issues every shard's
+work on its slot's device before it waits on anything: no host sync, no
+data-dependent shape in the per-shard loop, so the cards run at once from
+one host thread.  The shards of one device run one after another on its
+stream.
+
+The merge keeps its configured names (``runtime.mesh_merge``): ``"ici"``
+gathers every shard's (id, score) block onto the first slot's device (peer
+copies, over NVLink where the cards have it; no copy where the slots share
+the card; never through the host) and merges there, the counterpart of the
+JAX package's ``all_gather`` + replicated merge; ``"host"`` copies each
+slot's blocks to pinned host memory, with an event on that slot's device,
+and merges them there (:func:`host_merge_topl`).  Both give the same bits.
 
 This module implements the *plaintext/trusted-refine* serving mode (vectors
 resident next to their routing shard) and the route-only steps of the
@@ -63,25 +77,88 @@ _UNPACK_CHUNK = 65_536        # rows unpacked at a time while building
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_shards`` row ranges of one corpus, all resident on ``device``."""
+    """``n_shards`` row ranges of one corpus over ``slots`` (torch devices,
+    in order; repeats allowed), ``n_shards // len(slots)`` consecutive
+    shards on each."""
 
     n_shards: int
-    device: torch.device
+    slots: tuple
+
+    def __post_init__(self):
+        if self.n_shards <= 0:
+            raise ValueError("a mesh needs at least one shard")
+        if not self.slots:
+            raise ValueError("a mesh needs at least one slot")
+        if self.n_shards % len(self.slots):
+            raise ValueError(f"{self.n_shards} shards do not split evenly "
+                             f"over {len(self.slots)} slots")
+
+    @property
+    def device(self) -> torch.device:
+        """The first slot's device: where the ``"ici"`` merge lands and
+        callers read results."""
+        return self.slots[0]
+
+    @property
+    def shards_per_slot(self) -> int:
+        return self.n_shards // len(self.slots)
+
+    @property
+    def devices(self) -> tuple:
+        """The distinct devices of the slots, in slot order."""
+        return tuple(dict.fromkeys(self.slots))
 
 
-def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
-    """``n_devices`` shards on ``device`` (default: the CUDA card, as for the
-    port's other entry points, and an error without one; the tests pass
-    ``"cpu"``).
-    With ``n_devices=None`` the count is the number of visible CUDA devices
-    for a CUDA ``device`` and 1 on the CPU; more shards than devices is the
-    normal case, since every shard lives on the one ``device``."""
+def _as_slot(device) -> torch.device:
+    """``device`` as a slot: a CUDA device gets its index (the current
+    device when it names none) and must be visible."""
     device = resolve_device(device)
-    if n_devices is None:
-        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_devices <= 0:
-        raise ValueError("a mesh needs at least one shard")
-    return Mesh(int(n_devices), device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        if index >= count:
+            raise ValueError(f"cuda:{index} is not visible: this host has "
+                             f"{count} CUDA device(s)")
+        device = torch.device("cuda", index)
+    return device
+
+
+def make_mesh(n_devices: int | None = None, device=None,
+              devices=None) -> Mesh:
+    """``n_devices`` shards over device slots.
+
+    * ``devices=[...]`` names the slots (``n_devices`` defaults to one
+      shard a slot);
+    * ``device=`` alone is one slot holding every shard (``n_devices``
+      defaults to the number of visible CUDA devices for a CUDA device and
+      to 1 on the CPU);
+    * neither is the first ``min(n_devices, card count)`` visible CUDA
+      cards, one slot each, as the JAX package's ``jax.devices()[:n]``
+      (``n_devices`` defaults to the card count); without a card this
+      raises, as every entry point of the port does.
+
+    A shard count that does not split evenly over the slots raises
+    ``ValueError``, and so does a CUDA device the host does not have: no
+    mesh is silently stacked on fewer cards."""
+    if device is not None and devices is not None:
+        raise ValueError("name the slots by device= or by devices=, "
+                         "not both")
+    if devices is not None:
+        slots = tuple(_as_slot(d) for d in devices)
+    elif device is not None:
+        slots = (_as_slot(device),)
+        if n_devices is None:
+            n_devices = torch.cuda.device_count() \
+                if slots[0].type == "cuda" else 1
+    else:
+        resolve_device(None)
+        cards = torch.cuda.device_count()
+        if n_devices is None:
+            n_devices = cards
+        slots = tuple(torch.device("cuda", i)
+                      for i in range(min(max(n_devices, 1), cards)))
+    return Mesh(int(len(slots) if n_devices is None else n_devices), slots)
 
 
 def resolve_scan_layout(mode, device_rows: int, bits_per_row: int,
@@ -107,11 +184,27 @@ def resolve_scan_layout(mode, device_rows: int, bits_per_row: int,
     return "packed" if device_rows * bits_per_row > budget else True
 
 
+def _per_slot(arr) -> list:
+    """The per-slot parts of a resident array or table: the value itself on
+    a one-slot mesh, the tuple's items otherwise."""
+    if isinstance(arr, (torch.Tensor, PartitionTable)):
+        return [arr]
+    return list(arr)
+
+
+def _join(parts: list):
+    """Per-slot parts → the attribute's value (see :func:`_per_slot`)."""
+    return parts[0] if len(parts) == 1 else tuple(parts)
+
+
 def _assemble_dim1(arr) -> np.ndarray:
-    """[Q, k*n] per-shard blocks side by side → host numpy."""
+    """[Q, k*n] per-shard blocks side by side → host numpy; per-slot parts
+    are concatenated along dim 1 in slot order."""
     if isinstance(arr, np.ndarray):
         return arr
-    return arr.cpu().numpy()
+    if isinstance(arr, torch.Tensor):
+        return arr.cpu().numpy()
+    return np.concatenate([_assemble_dim1(a) for a in arr], axis=1)
 
 
 def host_merge_topl(ids, sc, limit: int):
@@ -136,12 +229,21 @@ def host_merge_topl(ids, sc, limit: int):
     return np.where(sc_m == pad32, -1, ids_m), sc_m
 
 
-def _merge_device(ids_blocks: list, sc_blocks: list, limit: int):
-    """The on-device merge (``merge="ici"``): the shards' (id, score)
-    blocks side by side, the first ``min(limit, width)`` in ascending
+def _gather(blocks: list, device: torch.device) -> torch.Tensor:
+    """The shards' [Q, k] blocks side by side on ``device``: a peer copy
+    from each other device (queued on the streams, never through the
+    host), none for a block already there."""
+    return torch.cat([b.to(device, non_blocking=True) for b in blocks],
+                     dim=1)
+
+
+def _merge_device(ids_blocks: list, sc_blocks: list, limit: int,
+                  device: torch.device):
+    """The device merge (``merge="ici"``): the shards' (id, score) blocks
+    gathered onto ``device``, the first ``min(limit, width)`` in ascending
     (score, id) order on one int64 key, INT32_MAX ids → -1."""
-    all_ids = torch.cat(ids_blocks, dim=1)
-    all_sc = torch.cat(sc_blocks, dim=1)
+    all_ids = _gather(ids_blocks, device)
+    all_sc = _gather(sc_blocks, device)
     key = (all_sc.to(torch.int64) << 32) | all_ids.to(torch.int64)
     r = min(limit, key.shape[1])
     key = torch.topk(key, r, dim=1, largest=False, sorted=True).values
@@ -152,19 +254,22 @@ def _merge_device(ids_blocks: list, sc_blocks: list, limit: int):
 
 class _Dispatched:
     """A dispatched route: device→host copies in flight (pinned,
-    non-blocking), waited for by :meth:`get`.  With ``host_limit`` set the
-    copies are the per-shard blocks and :meth:`get` merges them on the
-    host."""
+    non-blocking, one event per source device), waited for by :meth:`get`.
+    With ``host_limit`` set the copies are the per-slot blocks and
+    :meth:`get` merges them on the host."""
 
     def __init__(self, ids, sc, host_limit: int | None = None):
-        self._copy = _HostCopy([ids, sc])
+        ids, sc = _per_slot(ids), _per_slot(sc)
+        self._n = len(ids)
+        self._copy = _HostCopy(ids + sc)
         self._host_limit = host_limit
 
     def get(self) -> tuple[np.ndarray, np.ndarray]:
-        ids, sc = self._copy.get()
+        out = self._copy.get()
+        ids, sc = out[:self._n], out[self._n:]
         if self._host_limit is not None:
             return host_merge_topl(ids, sc, self._host_limit)
-        return ids, sc
+        return ids[0], sc[0]
 
 
 class ShardedIndex:
@@ -175,37 +280,73 @@ class ShardedIndex:
         self.mesh = mesh
         self.device = mesh.device
         self.bank = bank
-        self._bank_dev = coding.bank_to(bank, self.device)
+        # one copy of the bank's arrays on each distinct device
+        self._banks = {dev: coding.bank_to(bank, dev)
+                       for dev in mesh.devices}
         self.block_size = block_size
         # full code-prefix partition order past the 63-bit key
         # (ops/partition.build_partitions(wide=); runtime.wide_keys)
         self.wide_keys = wide_keys
         self.n_devices = mesh.n_shards
-        self.table: PartitionTable | None = None     # fields [n, G, P, ...]
-        self.base: torch.Tensor | None = None        # f32 [N_pad, d]
-        self.point_codes: torch.Tensor | None = None  # int32 [N_pad, G, W]
-        self.bits: torch.Tensor | None = None        # int8 [N_pad, B]
-        self.words: torch.Tensor | None = None       # int32 [N_pad, G, W]
+        # each resident array: one tensor per slot (see the module notes)
+        self.table = None          # PartitionTable, fields [n/slot, G, ...]
+        self.base = None           # f32 [rows/slot, d]
+        self.point_codes = None    # int32 [rows/slot, G, W]
+        self.bits = None           # int8 [rows/slot, B]
+        self.words = None          # int32 [rows/slot, G, W]
         #   packed scan words (8× fewer resident bytes; mutually exclusive
         #   with `bits` — see resolve_scan_layout)
-        self.popc: torch.Tensor | None = None        # int32 [N_pad]
-        self.tombs: torch.Tensor | None = None       # bool [N_pad]
+        self.popc = None           # int32 [rows/slot]
+        self.tombs = None          # bool [rows/slot]
         self.shard_rows = 0
         self.n = 0
-        # scan-merge backend: "ici" = merge on the device, "host" = the
-        # per-shard top-Ls cross to the host and host_merge_topl does the
-        # identical exact merge
+        # scan-merge backend: "ici" = gather onto the first slot's device
+        # and merge there, "host" = the per-slot top-Ls cross to the host
+        # and host_merge_topl does the identical exact merge
         self.merge_backend = "ici"
 
+    # -- layout ------------------------------------------------------------------
+
+    @property
+    def _slot_rows(self) -> int:
+        """Rows of one slot's tensors: its shards back to back."""
+        return self.shard_rows * self.mesh.shards_per_slot
+
+    def _slot_device(self, s: int) -> torch.device:
+        """The device of shard ``s``'s slot."""
+        return self.mesh.slots[s // self.mesh.shards_per_slot]
+
+    def _shard(self, arr, s: int) -> torch.Tensor:
+        """Shard ``s``'s row range of a resident array — a view into its
+        slot's tensor."""
+        spp = self.mesh.shards_per_slot
+        lo = (s % spp) * self.shard_rows
+        return _per_slot(arr)[s // spp][lo:lo + self.shard_rows]
+
+    def _shard_table(self, table, s: int) -> PartitionTable:
+        spp = self.mesh.shards_per_slot
+        return PartitionTable(*(None if f is None else f[s % spp]
+                                for f in _per_slot(table)[s // spp]))
+
+    # a resident array as its per-slot tensors, in shard order (the JAX
+    # package's per-device arrays)
+    _per_device = staticmethod(_per_slot)
+
+    def _gather_host(self, arr) -> np.ndarray:
+        """A resident array on the host: each slot's tensor copied on its
+        own and the copies concatenated in shard order."""
+        return np.concatenate([p.cpu().numpy() for p in _per_slot(arr)])
+
     def _init_tombs(self) -> None:
-        """Fresh all-false tombstone mask (one bool per padded row).
-        Deletions are a runtime input to every query step."""
-        self.tombs = torch.zeros(self.shard_rows * self.n_devices,
-                                 dtype=torch.bool, device=self.device)
+        """Fresh all-false tombstone mask (one bool per padded row) on every
+        slot.  Deletions are a runtime input to every query step."""
+        self.tombs = _join([torch.zeros(self._slot_rows, dtype=torch.bool,
+                                        device=dev)
+                            for dev in self.mesh.slots])
 
     def _set_tombstones(self, ids, value: bool) -> None:
         """Set/clear tombstone bits for global row ids, in place on the
-        device mask.  O(changes), no rebuild."""
+        mask of the slot that owns each.  O(changes), no rebuild."""
         if self.tombs is None:
             raise RuntimeError("build before tombstone updates")
         ids = np.atleast_1d(np.asarray(ids, np.int64))
@@ -213,8 +354,13 @@ class ShardedIndex:
             return
         if (ids < 0).any() or (ids >= self.n).any():
             raise ValueError("tombstone ids out of range")
-        self.tombs.index_fill_(0, torch.from_numpy(ids).to(self.device),
-                               value)
+        span = self._slot_rows
+        slot_of = ids // span
+        parts = _per_slot(self.tombs)
+        for i in np.unique(slot_of):
+            i = int(i)
+            local = torch.from_numpy(ids[slot_of == i] - i * span)
+            parts[i].index_fill_(0, local.to(parts[i].device), value)
 
     def mark_deleted(self, ids) -> None:
         """Tombstone global row ids across the shards — the sharded
@@ -228,23 +374,24 @@ class ShardedIndex:
 
     # -- build ------------------------------------------------------------------
 
-    def _shard(self, arr: torch.Tensor, s: int) -> torch.Tensor:
-        """Shard ``s``'s row range of a resident array — a view."""
-        return arr[s * self.shard_rows:(s + 1) * self.shard_rows]
-
-    def _build_tables(self, codes: torch.Tensor) -> None:
-        """Per-shard partition tables from the resident codes
-        ([N_pad, G, W]), stacked under a leading shard axis."""
+    def _build_tables(self, codes_parts: list) -> None:
+        """Per-shard partition tables from each slot's resident codes
+        ([rows/slot, G, W]), stacked per slot under a leading shard axis."""
+        rows = self.shard_rows
         tables = []
-        for s in range(self.n_devices):
-            codes_s = self._shard(codes, s)
-            keys_s = coding.keys_from_codes(codes_s)
-            tables.append(partition.build_partitions(
-                keys_s.T.contiguous(), codes_s.permute(1, 0, 2).contiguous(),
-                self.block_size, wide=self.wide_keys))
-        self.table = PartitionTable(*(
-            None if fs[0] is None else torch.stack(fs)
-            for fs in zip(*tables)))
+        for codes in codes_parts:
+            per_shard = []
+            for lo in range(0, len(codes), rows):
+                codes_s = codes[lo:lo + rows]
+                keys_s = coding.keys_from_codes(codes_s)
+                per_shard.append(partition.build_partitions(
+                    keys_s.T.contiguous(),
+                    codes_s.permute(1, 0, 2).contiguous(), self.block_size,
+                    wide=self.wide_keys))
+            tables.append(PartitionTable(*(
+                None if fs[0] is None else torch.stack(fs)
+                for fs in zip(*per_shard))))
+        self.table = _join(tables)
 
     def build(self, base: np.ndarray, keep_base: bool = True,
               keep_codes: bool = False, keep_bits: bool = False,
@@ -252,9 +399,9 @@ class ShardedIndex:
         """Pad to the shard count, encode + build per-shard partitions.
 
         Layout: every array's leading-N axis is cut into the shards' row
-        ranges; group/partition axes stay local, so the build sort and all
-        query gathers are shard-local (nothing crosses shards until the
-        final merge).
+        ranges, each slot's shards in one tensor on its device; group and
+        partition axes stay local, so the build sort and all query gathers
+        are shard-local (nothing crosses shards until the final merge).
 
         ``keep_base=False`` drops the plaintext corpus from the device after
         the routing tables are built — the ENCRYPTED serving mode: the
@@ -278,20 +425,24 @@ class ShardedIndex:
             base = np.concatenate([base, np.repeat(base[-1:], pad, 0)])
         self.n = n
         self.shard_rows = rows
-        base_dev = torch.from_numpy(
-            np.ascontiguousarray(base, np.float32)).to(self.device)
-
-        bank = self._bank_dev
-        codes_dev = torch.empty((rows * nd, bank.g, bank.code_words),
-                                dtype=torch.int32, device=self.device)
-        for s in range(nd):
-            codes_s, _ = coding.encode(self._shard(base_dev, s), bank)
-            self._shard(codes_dev, s).copy_(codes_s)
-        self._build_tables(codes_dev)
+        base = np.ascontiguousarray(base, np.float32)
+        span = self._slot_rows
+        base_parts, codes_parts = [], []
+        for i, dev in enumerate(self.mesh.slots):
+            part = torch.from_numpy(base[i * span:(i + 1) * span]).to(dev)
+            bank = self._banks[dev]
+            codes = torch.empty((span, bank.g, bank.code_words),
+                                dtype=torch.int32, device=dev)
+            for lo in range(0, span, rows):
+                codes[lo:lo + rows].copy_(
+                    coding.encode(part[lo:lo + rows], bank)[0])
+            base_parts.append(part)
+            codes_parts.append(codes)
+        self._build_tables(codes_parts)
         self._init_tombs()
-        self.point_codes = codes_dev if keep_codes else None
-        self.base = base_dev if keep_base else None
-        self._set_scan_arrays(codes_dev, keep_bits)
+        self.point_codes = _join(codes_parts) if keep_codes else None
+        self.base = _join(base_parts) if keep_base else None
+        self._set_scan_arrays(codes_parts, keep_bits)
 
     def build_stream(self, chunks, n_total: int, keep_codes: bool = False,
                      keep_bits: bool = False,
@@ -301,22 +452,24 @@ class ShardedIndex:
         loop, ForwardSecureANNSystem.java:438-479; the one-shot ``build``
         pads and uploads the whole corpus).
 
-        Each chunk is sliced at shard-row boundaries, shipped to the device
-        and encoded there (device-consistent with query-time encoding —
-        bit-identical codes), and the raw slice is dropped; host peak memory
-        is one chunk, device peak is the codes.  The codes land in their
-        shard's range of the one resident array and the per-shard partition
-        build runs exactly like the one-shot path.
+        Each chunk is sliced at shard-row boundaries, each slice shipped to
+        the device of the slot that owns its rows and encoded there
+        (device-consistent with query-time encoding — bit-identical codes),
+        and the raw slice is dropped; host peak memory is one chunk, device
+        peak is the codes.  The codes land in their shard's range of the
+        slot's array and the per-shard partition build runs exactly like
+        the one-shot path.
         """
         nd = self.n_devices
         rows = -(-max(n_total, capacity or 0) // nd)
         self.n = n_total
         self.shard_rows = rows
-        bank = self._bank_dev
+        span = self._slot_rows
+        g, w = self.bank.g, self.bank.code_words
         # zero rows past the stream's end: the tail shard's pad, masked at
         # query time (rows >= n)
-        codes_dev = torch.zeros((rows * nd, bank.g, bank.code_words),
-                                dtype=torch.int32, device=self.device)
+        codes_parts = [torch.zeros((span, g, w), dtype=torch.int32,
+                                   device=dev) for dev in self.mesh.slots]
         pos = 0
         for c in chunks:
             c = np.ascontiguousarray(c, np.float32)
@@ -327,41 +480,50 @@ class ShardedIndex:
                     raise ValueError(
                         f"stream longer than n_total={n_total}")
                 take = min(len(c) - o, (s + 1) * rows - (pos + o))
-                dev_chunk = torch.from_numpy(c[o:o + take]).to(self.device)
-                codes_s, _ = coding.encode(dev_chunk, bank)
-                hamming_scan.update_rows(codes_dev, codes_s, pos + o)
+                i = s // self.mesh.shards_per_slot
+                dev = self.mesh.slots[i]
+                codes_s, _ = coding.encode(
+                    torch.from_numpy(c[o:o + take]).to(dev), self._banks[dev])
+                hamming_scan.update_rows(codes_parts[i], codes_s,
+                                         pos + o - i * span)
                 o += take
             pos += len(c)
         if pos != n_total:
             raise ValueError(f"stream provided {pos} rows, "
                              f"expected n_total={n_total}")
-        self._build_tables(codes_dev)
+        self._build_tables(codes_parts)
         self._init_tombs()
         self.base = None
-        self.point_codes = codes_dev if keep_codes else None
-        self._set_scan_arrays(codes_dev, keep_bits)
+        self.point_codes = _join(codes_parts) if keep_codes else None
+        self._set_scan_arrays(codes_parts, keep_bits)
         return pos
 
-    def _set_scan_arrays(self, codes_global: torch.Tensor, keep_bits) -> None:
-        """Materialize the scan state from the resident packed codes in the
-        requested layout: True = unpacked int8 bit matrix (built block by
-        block into one preallocated tensor), "packed" = keep the int32
-        words, False = none.  Popcounts come from the words (pad bits are
-        zero by the packers' contract, ops/coding.py pack_codes)."""
+    def _set_scan_arrays(self, codes_parts: list, keep_bits) -> None:
+        """Materialize each slot's scan state from its resident packed
+        codes in the requested layout: True = unpacked int8 bit matrix
+        (built block by block into one preallocated tensor), "packed" =
+        keep the int32 words, False = none.  Popcounts come from the words
+        (pad bits are zero by the packers' contract, ops/coding.py
+        pack_codes)."""
         self.bits = self.words = self.popc = None
         if not keep_bits:
             return
-        self.popc = hamming_scan._popcounts(codes_global, _UNPACK_CHUNK)
+        self.popc = _join([hamming_scan._popcounts(c, _UNPACK_CHUNK)
+                           for c in codes_parts])
         if keep_bits == "packed":
-            self.words = codes_global
+            self.words = _join(codes_parts)
             return
         cb = self.bank.code_bits
-        n_pad = codes_global.shape[0]
-        self.bits = torch.empty((n_pad, self.bank.g * cb), dtype=torch.int8,
-                                device=self.device)
-        for lo in range(0, n_pad, _UNPACK_CHUNK):
-            self.bits[lo:lo + _UNPACK_CHUNK] = hamming_scan.unpack_bits_device(
-                codes_global[lo:lo + _UNPACK_CHUNK], cb)
+        bits_parts = []
+        for codes in codes_parts:
+            bits = torch.empty((len(codes), self.bank.g * cb),
+                               dtype=torch.int8, device=codes.device)
+            for lo in range(0, len(codes), _UNPACK_CHUNK):
+                bits[lo:lo + _UNPACK_CHUNK] = \
+                    hamming_scan.unpack_bits_device(
+                        codes[lo:lo + _UNPACK_CHUNK], cb)
+            bits_parts.append(bits)
+        self.bits = _join(bits_parts)
 
     # -- checkpoint / restore ----------------------------------------------------
 
@@ -370,7 +532,9 @@ class ShardedIndex:
         geometry.  The sharded analogue of the single-device table
         checkpoint (index/service.save_table): codes are the generator of
         every routing structure (tables/bits rebuild deterministically), so
-        the checkpoint is N·G·W words instead of all derived state.
+        the checkpoint is N·G·W words instead of all derived state.  The
+        slots are copied to the host one by one (:meth:`_gather_host`) and
+        the file does not depend on the slot count.
 
         The file holds the JAX package's keys and, beside them, ``alpha``
         (the JAX package regenerates it from the seed; either file
@@ -381,10 +545,10 @@ class ShardedIndex:
             raise RuntimeError("nothing to save: build with keep_codes or "
                                "keep_bits first")
         if codes is not None:
-            codes_np = coding.words_to_numpy(codes)
+            codes_np = self._gather_host(codes).view(np.uint32)
         else:
             # scan-only build: repack the bit matrix (lossless)
-            bits = self.bits.cpu().numpy().view(np.uint8)    # [N_pad, B]
+            bits = self._gather_host(self.bits).view(np.uint8)  # [N_pad, B]
             g, cb = self.bank.g, self.bank.code_bits
             w = self.bank.code_words
             by = np.packbits(
@@ -407,12 +571,13 @@ class ShardedIndex:
     def restore_state(cls, path: str, mesh: Mesh,
                       keep_codes: bool = False, keep_bits: bool = True
                       ) -> "ShardedIndex":
-        """Rebuild a ShardedIndex from :meth:`save_state` — the codes ship
-        straight to the device (no re-encode, no plaintext) and tables/bits
-        rebuild per shard.  Fails if the mesh size disagrees with the
-        checkpoint's shard geometry.  A checkpoint without ``alpha`` (the
-        JAX package's) regenerates it from the seed, as JAX's own restore
-        does (``coding.bank_from_stats``)."""
+        """Rebuild a ShardedIndex from :meth:`save_state` — each slot's
+        codes ship straight to its device (no re-encode, no plaintext) and
+        tables/bits rebuild per shard.  Any slot count restores a file of
+        the same shard count; a mesh of another shard count is refused.  A
+        checkpoint without ``alpha`` (the JAX package's) regenerates it
+        from the seed, as JAX's own restore does
+        (``coding.bank_from_stats``)."""
         with np.load(path) as z:
             nd = int(z["ndev"])
             if mesh.n_shards != nd:
@@ -432,12 +597,16 @@ class ShardedIndex:
                       else False)
             idx.n = int(z["n"])
             idx.shard_rows = int(z["shard_rows"])
-            codes_global = coding.words_to_torch(
-                z["codes"].astype(np.uint32), mesh.device)
-        idx._build_tables(codes_global)
+            codes_np = z["codes"].astype(np.uint32)
+        span = idx._slot_rows
+        codes_parts = [coding.words_to_torch(codes_np[i * span:(i + 1) * span],
+                                             dev)
+                       for i, dev in enumerate(mesh.slots)]
+        del codes_np
+        idx._build_tables(codes_parts)
         idx._init_tombs()
-        idx.point_codes = codes_global if keep_codes else None
-        idx._set_scan_arrays(codes_global, keep_bits)
+        idx.point_codes = _join(codes_parts) if keep_codes else None
+        idx._set_scan_arrays(codes_parts, keep_bits)
         return idx
 
     # -- live insert (scan mode) -------------------------------------------------
@@ -445,8 +614,8 @@ class ShardedIndex:
     def append_scan_rows(self, vecs: np.ndarray) -> np.ndarray:
         """Live insert (scan mode) — the sharded analogue of the
         single-device ``PartitionedIndex.append_rows`` (index/service.py):
-        encode the new rows on the device, write them IN PLACE into their
-        shard's range of the resident scan state
+        encode the new rows on the device of the slot that owns them, write
+        them IN PLACE into their shard's range of that slot's scan state
         (``hamming_scan.update_rows``: the tensors keep their storage), and
         bump ``n`` — the scan step reads the live row count at every call,
         so appended rows are searchable immediately.
@@ -467,22 +636,24 @@ class ShardedIndex:
                 f"mesh capacity exhausted ({rows * nd} rows, {self.n} "
                 "live) — rebuild with capacity headroom")
         cb = self.bank.code_bits
+        span = self._slot_rows
+        mats = _per_slot(self.words if packed else self.bits)
+        popcs = _per_slot(self.popc)
         pos, o = self.n, 0
         while o < b:
             s = (pos + o) // rows
             off = (pos + o) - s * rows
             take = min(b - o, rows - off)
-            chunk = torch.from_numpy(vecs[o:o + take]).to(self.device)
-            codes_s, _ = coding.encode(chunk, self._bank_dev)
-            if packed:
-                hamming_scan.update_rows(self.words, codes_s, pos + o)
-            else:
-                hamming_scan.update_rows(
-                    self.bits, hamming_scan.unpack_bits_device(codes_s, cb),
-                    pos + o)
+            i = s // self.mesh.shards_per_slot
+            dev = self.mesh.slots[i]
+            at = pos + o - i * span
+            chunk = torch.from_numpy(vecs[o:o + take]).to(dev)
+            codes_s, _ = coding.encode(chunk, self._banks[dev])
             hamming_scan.update_rows(
-                self.popc, hamming_scan._popcounts(codes_s, _UNPACK_CHUNK),
-                pos + o)
+                mats[i], codes_s if packed
+                else hamming_scan.unpack_bits_device(codes_s, cb), at)
+            hamming_scan.update_rows(
+                popcs[i], hamming_scan._popcounts(codes_s, _UNPACK_CHUNK), at)
             o += take
         # kept packed codes (rerank path) don't cover the appended rows —
         # drop them so save_state repacks from the (current) scan state
@@ -509,20 +680,33 @@ class ShardedIndex:
         return dead
 
     def _queries(self, queries) -> torch.Tensor:
+        """The queries as float32 on the first slot's device; host arrays
+        go through pinned memory, so the upload does not wait either."""
         if isinstance(queries, torch.Tensor):
             return queries.to(device=self.device, dtype=torch.float32)
-        return torch.from_numpy(
-            np.ascontiguousarray(queries, np.float32)).to(self.device)
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
+        if self.device.type == "cuda":
+            q = q.pin_memory()
+        return q.to(self.device, non_blocking=True)
 
-    def _shard_table(self, table_stacked: PartitionTable, s: int
-                     ) -> PartitionTable:
-        return PartitionTable(*(None if f is None else f[s]
-                                for f in table_stacked))
+    def _replicate(self, queries: torch.Tensor) -> dict:
+        """The queries on every distinct device of the mesh (the JAX
+        package's replicated ``P(None)`` queries): a peer copy to each
+        device they are not on."""
+        return {dev: queries.to(dev, non_blocking=True)
+                for dev in self.mesh.devices}
+
+    def _encode(self, replicas: dict) -> dict:
+        """device → the queries' (codes, keys), encoded on that device from
+        its replica (:meth:`_replicate`)."""
+        return {dev: coding.encode(q, self._banks[dev])
+                for dev, q in replicas.items()}
 
     def query_step_fn(self, probes: int, refinement_limit: int, k: int,
                       probe_shards: int | None = None):
         """Return the sharded query step (route → local refine → top-k
-        merge over the shards): ``step(table, base, tombs, queries)``.
+        merge over the shards, gathered onto the first slot's device):
+        ``step(table, base, tombs, queries)``.
 
         ``probe_shards`` restricts results to the first N shards (reference
         ``-Dprobe.shards``, ForwardSecureANNSystem.java:1598-1617): the
@@ -530,14 +714,16 @@ class ShardedIndex:
 
         Ties in distance keep the lower candidate position (stable sorts),
         the order of the JAX package's ``lax.top_k``."""
-        bank = self._bank_dev
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
 
         def step(table_stacked, base, tombs, queries):
-            qcodes, qkeys = coding.encode(queries, bank)
+            qs = self._replicate(queries)
+            enc = self._encode(qs)
             ids_blocks, d2_blocks = [], []
             for s in range(self.n_devices):
+                dev = self._slot_device(s)
+                qcodes, qkeys = enc[dev]
                 tomb = self._dead_rows(s, self._shard(tombs, s), self.n,
                                        shard_cap)
                 routed = routing.route(self._shard_table(table_stacked, s),
@@ -546,7 +732,7 @@ class ShardedIndex:
                 cand = routed.ids                                # local rows
                 safe = torch.clamp(cand, min=0).to(torch.int64)
                 cand_vecs = self._shard(base, s)[safe]           # [Q, R, d]
-                diff = cand_vecs - queries[:, None, :]
+                diff = cand_vecs - qs[dev][:, None, :]
                 d2 = (diff * diff).sum(dim=-1)
                 d2 = torch.where(cand >= 0, d2,
                                  torch.full_like(d2, 3.4e38))
@@ -559,8 +745,8 @@ class ShardedIndex:
                     torch.full_like(local_ids, -1)))
                 d2_blocks.append(d2)
             # ---- merge of the shards' tiny top-K blocks ----
-            all_ids = torch.cat(ids_blocks, dim=1)               # [Q, n*K]
-            all_d2 = torch.cat(d2_blocks, dim=1)
+            all_ids = _gather(ids_blocks, self.device)           # [Q, n*K]
+            all_d2 = _gather(d2_blocks, self.device)
             md2, midx = torch.sort(all_d2, dim=-1, stable=True)
             md2, midx = md2[:, :k], midx[:, :k]
             out_ids = all_ids.gather(-1, midx)
@@ -576,19 +762,18 @@ class ShardedIndex:
                       rerank_limit: int = 0):
         """Route-ONLY sharded step for encrypted serving: per-shard
         multi-probe routing, global-id conversion, merge of the per-shard
-        ranked (id, score) blocks by Hamming score on the device:
-        ``step(table, tombs, queries[, point_codes])``.  No vector content
-        touches the device — the candidate ids go back to the host for
-        decrypt+refine against the shard-aligned ciphertext arenas.
+        ranked (id, score) blocks by Hamming score on the first slot's
+        device: ``step(table, tombs, queries[, point_codes])``.  No vector
+        content touches the device — the candidate ids go back to the host
+        for decrypt+refine against the shard-aligned ciphertext arenas.
 
         ``rerank_limit > 0`` (needs build(keep_codes=True)) re-scores each
         shard's routed set by exact full-code Hamming
         (ops/routing.route_rerank: one ``code_hamming`` launch per shard and
-        batch) and truncates LOCALLY before the merge — the global top-L by
-        fine score is contained in the union of per-shard top-Ls, so the
-        merge is exact while its payload shrinks from refinement_limit to
-        rerank_limit per shard."""
-        bank = self._bank_dev
+        batch, on the shard's device) and truncates LOCALLY before the
+        merge — the global top-L by fine score is contained in the union of
+        per-shard top-Ls, so the merge is exact while its payload shrinks
+        from refinement_limit to rerank_limit per shard."""
         rows = self.shard_rows
         limit = refinement_limit
         shard_cap = self._shard_cap(probe_shards)
@@ -597,9 +782,10 @@ class ShardedIndex:
             raise RuntimeError("rerank requires build(keep_codes=True)")
 
         def step(table_stacked, tombs, queries, *maybe_codes):
-            qcodes, qkeys = coding.encode(queries, bank)
+            enc = self._encode(self._replicate(queries))
             ids_blocks, sc_blocks = [], []
             for s in range(self.n_devices):
+                qcodes, qkeys = enc[self._slot_device(s)]
                 table = self._shard_table(table_stacked, s)
                 dead_rows = self._dead_rows(s, self._shard(tombs, s), self.n,
                                             shard_cap)
@@ -616,75 +802,86 @@ class ShardedIndex:
                                               pad))
                 sc_blocks.append(torch.where(live, routed.scores, pad))
             return _merge_device(ids_blocks, sc_blocks,
-                                 rerank_limit if use_rerank else limit)
+                                 rerank_limit if use_rerank else limit,
+                                 self.device)
 
         return step
 
-    def _scan_blocks(self, local_topl, qpopc: torch.Tensor, limit: int,
-                     merge: str):
-        """Run ``local_topl(s)`` → (rank int32 [Q, k], row int32 [Q, k],
-        dead = (_DEAD, -1)) over the shards and merge: global ids, fine
-        scores (rank + the query's popcount), INT32_MAX pads;
-        ``merge="host"`` returns the blocks side by side for
+    def _scan_blocks(self, local_topl, qbits: dict, limit: int, merge: str):
+        """Run ``local_topl(s, dev)`` → (rank int32 [Q, k], row int32 [Q, k],
+        dead = (_DEAD, -1)) over the shards, each on its slot's device, and
+        merge: global ids, fine scores (rank + the query's popcount),
+        INT32_MAX pads.  ``merge="host"`` returns each slot's blocks side by
+        side (one tensor a slot, see :func:`_join`) for
         :func:`host_merge_topl`."""
         rows = self.shard_rows
         ids_blocks, sc_blocks = [], []
         for s in range(self.n_devices):
-            best_sc, best_id = local_topl(s)
+            dev = self._slot_device(s)
+            best_sc, best_id = local_topl(s, dev)
+            qpopc = qbits[dev][1]
             live = best_sc < _DEAD
             pad = torch.full_like(best_sc, INT32_MAX)
             ids_blocks.append(torch.where(live, best_id + s * rows, pad))
             sc_blocks.append(torch.where(live, best_sc + qpopc[:, None], pad))
         if merge == "host":
-            return torch.cat(ids_blocks, dim=1), torch.cat(sc_blocks, dim=1)
-        return _merge_device(ids_blocks, sc_blocks, limit)
+            spp = self.mesh.shards_per_slot
 
-    def _no_live_row(self, q: int, k: int):
+            def per_slot(blocks):
+                return _join([torch.cat(blocks[lo:lo + spp], dim=1)
+                              for lo in range(0, self.n_devices, spp)])
+
+            return per_slot(ids_blocks), per_slot(sc_blocks)
+        return _merge_device(ids_blocks, sc_blocks, limit, self.device)
+
+    def _no_live_row(self, q: int, k: int, device: torch.device):
         """The local top-k of a shard that is not scanned: all dead."""
-        return (torch.full((q, k), _DEAD, dtype=torch.int32,
-                           device=self.device),
-                torch.full((q, k), -1, dtype=torch.int32,
-                           device=self.device))
+        return (torch.full((q, k), _DEAD, dtype=torch.int32, device=device),
+                torch.full((q, k), -1, dtype=torch.int32, device=device))
 
-    def _query_bits(self, queries: torch.Tensor):
+    def _query_bits(self, queries: torch.Tensor, device: torch.device):
         """The queries' code bits (int8 [Q, B]) and popcounts, encoded ON
-        THE DEVICE (unlike the single-device scan point, which encodes on
+        ``device`` (unlike the single-device scan point, which encodes on
         the host)."""
-        qcodes, _ = coding.encode(queries, self._bank_dev)
+        qcodes, _ = coding.encode(queries.to(device, non_blocking=True),
+                                  self._banks[device])
         qbits = hamming_scan.unpack_bits_device(qcodes, self.bank.code_bits)
         return qbits, qbits.to(torch.int32).sum(dim=1, dtype=torch.int32)
 
     def scan_route_step_fn(self, limit: int, probe_shards: int | None = None,
                            approx: bool = False, merge: str = "ici"):
         """Hamming scan over the shards: per-shard int8 bit product + local
-        top-L, then the exact merge by fine score (global top-L ⊆ union of
-        per-shard top-Ls): ``step(bits, popc, tombs, queries, n_live)``.
-        The merged payload is L ids+scores per shard — no vector content,
-        no codes.
+        top-L on the shard's device, then the exact merge by fine score
+        (global top-L ⊆ union of per-shard top-Ls): ``step(bits, popc,
+        tombs, queries, n_live)``.  The merged payload is L ids+scores per
+        shard — no vector content, no codes.
 
         ``merge="host"`` returns the per-shard top-Ls side by side ([Q,
-        n*k]) and :func:`host_merge_topl` does the same exact 2-key merge on
-        the host — bit-identical results.  A shard with no live row (past
-        ``n_live``, or unprobed) is not scanned: its block is all pads.
-        ``approx`` selects each shard's top-L approximately over its rows."""
+        n*k] per slot) and :func:`host_merge_topl` does the same exact
+        2-key merge on the host — bit-identical results.  A shard with no
+        live row (past ``n_live``, or unprobed) is not scanned: its block
+        is all pads.  ``approx`` selects each shard's top-L approximately
+        over its rows."""
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
         k = min(limit, rows)
 
         def step(bits, popc, tombs, queries, n_live):
-            qbits, qpopc = self._query_bits(queries)
-            q = qbits.shape[0]
+            qbits = {dev: self._query_bits(queries, dev)
+                     for dev in self.mesh.devices}
+            q = queries.shape[0]
 
-            def local_topl(s):
+            def local_topl(s, dev):
                 if s >= shard_cap or s * rows >= n_live:
-                    return self._no_live_row(q, k)
+                    return self._no_live_row(q, k, dev)
                 dead = self._dead_rows(s, self._shard(tombs, s), n_live,
                                        shard_cap)
                 return hamming_scan._select(
-                    hamming_scan._bit_dots(qbits, self._shard(bits, s)),
+                    hamming_scan._bit_dots(qbits[dev][0],
+                                           self._shard(bits, s)),
                     self._shard(popc, s), dead, k, 0, approx)
 
-            return self._scan_blocks(local_topl, qpopc, limit, merge)
+            return self._scan_blocks(local_topl, qbits, limit, merge)
 
         return step
 
@@ -696,9 +893,9 @@ class ShardedIndex:
         running-top-L loop of the single-device scan
         (``hamming_scan.scan_chunks``) over its view of the words — slice
         ``chunk`` packed rows, unpack on the device, bit product, 2-key
-        merge — so only [chunk, B] of unpacked scratch exists at a time
-        (the resident state is the 8×-smaller word matrix).  Merge identical
-        to the unpacked step."""
+        merge — so only [chunk, B] of unpacked scratch exists at a time on
+        each device (the resident state is the 8×-smaller word matrix).
+        Merge identical to the unpacked step."""
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
         cb = self.bank.code_bits
@@ -706,27 +903,28 @@ class ShardedIndex:
         k = min(limit, chunk)
 
         def step(words, popc, tombs, queries, n_live):
-            qbits, qpopc = self._query_bits(queries)
-            q = qbits.shape[0]
+            qbits = {dev: self._query_bits(queries, dev)
+                     for dev in self.mesh.devices}
+            q = queries.shape[0]
 
-            def local_topl(s):
+            def local_topl(s, dev):
                 if s >= shard_cap or s * rows >= n_live:
-                    return self._no_live_row(q, k)
+                    return self._no_live_row(q, k, dev)
                 dead = self._dead_rows(s, self._shard(tombs, s), n_live,
                                        shard_cap)
                 return hamming_scan.scan_chunks(
-                    self._shard(words, s), self._shard(popc, s), dead, qbits,
-                    limit, chunk, cb, approx=approx)
+                    self._shard(words, s), self._shard(popc, s), dead,
+                    qbits[dev][0], limit, chunk, cb, approx=approx)
 
-            return self._scan_blocks(local_topl, qpopc, limit, merge)
+            return self._scan_blocks(local_topl, qbits, limit, merge)
 
         return step
 
     def scan_route_dispatch(self, queries: np.ndarray, limit: int = 2048,
                             probe_shards: int | None = None,
                             approx: bool = False) -> _Dispatched:
-        """Non-blocking stage-A dispatch: the step is queued on the device
-        and the result's copy to pinned host memory started;
+        """Non-blocking stage-A dispatch: the step is queued on every
+        slot's device and the result's copy to pinned host memory started;
         ``.get()`` waits for it (and, with ``merge_backend="host"``, merges
         the shards' blocks on the host)."""
         packed = self.words is not None

@@ -47,28 +47,33 @@ class StaleTokenError(ValueError):
 class _HostCopy:
     """Device→host copies started now, waited for later.
 
-    CUDA tensors are copied ``non_blocking`` into pinned host buffers on the
-    current stream, followed by a recorded event; :meth:`get` waits on that
-    event only.  numpy arrays and CPU tensors pass straight through."""
+    CUDA tensors are copied ``non_blocking`` into pinned host buffers on
+    their device's current stream; then one event is recorded on the
+    current stream of each source device, after all of its copies, and
+    :meth:`get` waits on those events only.  numpy arrays and CPU tensors
+    pass straight through."""
 
     def __init__(self, arrays):
         self._out = []
-        self._event = None
+        devices = []
         for a in arrays:
             if isinstance(a, torch.Tensor) and a.device.type == "cuda":
                 h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
                 h.copy_(a, non_blocking=True)
                 self._out.append(h)
-                if self._event is None:
-                    self._event = torch.cuda.Event()
+                if a.device not in devices:
+                    devices.append(a.device)
             else:
                 self._out.append(a)
-        if self._event is not None:
-            self._event.record()
+        self._events = []
+        for dev in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            self._events.append(event)
 
     def get(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return [None if a is None else _host(a) for a in self._out]
 
 
