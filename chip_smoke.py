@@ -15,13 +15,17 @@ Phases (any failure raises and exits non-zero):
      ``library_topk``) beside its bound and its split-TF32 floor; pass 1's
      resident blocks per SM;
   4. the Hamming scan on CUDA against the same scan on the CPU: 100k rows
-     of 3,072-bit codes, 64-query batch, L=2,000, margin 40 — bit-identical;
+     of 3,072-bit codes, 64-query batch, L=2,000, margin 40, approx=False —
+     bit-identical;
   5. the encrypted scan-query slice at bench.py's operating point (1M x 128
      LSH-hard corpus, m=64 → 3,072-bit codes, L=2,000, margin 40, f16
      payloads, host encode, batch 64) through ForwardSecureANNSystem, with
      ground truth from the kernel; recall@10 >= 0.98 and ratio@100 <= 1.01;
-     then the kernel against its plain twin, float64 and the library call
-     at the ground-truth shape (1M x 128, 1,024 queries);
+     the served route selects approximately, as the JAX package's: one
+     ``approx_topk`` launch a batch, a mean share >= APPROX_SHARE_GATE of
+     the exact top-2,000 (the same scan with approx=False) kept; then the
+     kernel against its plain twin, float64 and the library call at the
+     ground-truth shape (1M x 128, 1,024 queries);
   6. the candidate-Hamming kernel's two paths (gather and row-window
      sweep) against its plain torch twin, bit for bit: 1M rows x 96 words,
      64 queries x 49,152 candidates with pads, ascending and shuffled, and
@@ -45,20 +49,24 @@ Phases (any failure raises and exits non-zero):
      ``--profile`` adds a torch.profiler pass over the served queries;
   9. the packed scan state at phase 4's inputs: built on CUDA == built on
      the CPU, the packed chunked scan == the unpacked flat scan on every
-     field (Q in {64, 7, 1}, chunk 32,768, and 30,000: a ragged tail),
+     field with approx=False (Q in {64, 7, 1}, chunk 32,768, and 30,000: a
+     ragged tail),
      ``update_rows`` into zero padding keeps the words' storage and scans
      like a fresh build, and the native host scan == the CUDA scan; the
      packed scan's device ms per batch and its peak device memory;
  10. the scan lifecycle at 1M through ForwardSecureANNSystem: phase 5's
      store restored into a packed state padded to 1M + 65,536 rows, the
-     1,024 queries served with phase 5's exact ids and distances and a peak
-     device memory UNDER the unpacked scan point's (phase 5) serving peak,
-     the packed route's device ms per batch, 4 live inserts of 16,384 rows
-     in place and one past capacity, self search, delete, rotation with
-     re-encryption, flush_all and an unpacked restore that reproduces the
-     results;
- 11. the same store served by the native host scan: the first batch's
-     route equals the CUDA scan's;
+     1,024 queries served with phase 5's gates and a peak device memory
+     UNDER the unpacked scan point's (phase 5) serving peak; the served
+     route of every batch equal on every field to ``scan_chunked`` with
+     approx=True over phase 5's codes unpacked into the same rows, and with
+     approx=False equal to phase 5's exact route; the packed route's device
+     ms per batch, 4 live inserts of 16,384 rows in place and one past
+     capacity, self search, delete, rotation with re-encryption, flush_all,
+     a restore into the served layout that reproduces the results and an
+     unpacked restore that reproduces the exact route;
+ 11. the same store served by the native host scan (exact): the first
+     batch's route equals the CUDA scan's with approx=False;
  12. the command line (``fspann_tpu_torch.api.cli``) on 100k rows of the
      corpus with ``--gt AUTO`` and the HARD_SCAN profile of
      configs/hard1m.json, then ``--query-only``: exit 0 and recall@10 at or
@@ -66,15 +74,16 @@ Phases (any failure raises and exits non-zero):
  13. the sharded index (``parallel/sharded.ShardedIndex``) at 1M on the
      card, from phase 5's corpus and bank: built at 1, 4 and 8 shards,
      unpacked and packed, merged on the device ("ici") and on the host; the
-     scan route of the 1,024 queries at L = 2,000 equals the single-device
-     scan over the same codes in every combination (and phase 5's route,
-     when device and host encode agree on every bit, which is printed);
+     exact scan route (approx=False) of the 1,024 queries at L = 2,000
+     equals the single-device scan over the same codes in every combination
+     (and phase 5's exact route, when device and host encode agree on every
+     bit, which is printed);
      ``build_stream`` in 100,000-row chunks == the one-shot build; the
      probe route with the re-rank at 4 shards == the same route on CPU
      copies of the state, with each shard's ``code_hamming`` path;
-     ``scan_route(approx=True)`` at 4 shards, unpacked == packed, keeps a
-     mean share >= 0.98 of the exact route (one ``approx_topk`` launch a
-     shard and batch); 32
+     the default ``scan_route`` (approx=True) at 4 shards, unpacked ==
+     packed, keeps a mean share >= 0.98 of the exact route (one
+     ``approx_topk`` launch a shard and batch); 32
      deletes leave every route; 4 ``append_scan_rows`` of 16,384 rows keep
      the storage and are found by self search; ``save_state`` →
      ``restore_state`` reproduces the route; device ms per batch of 64 at
@@ -83,7 +92,8 @@ Phases (any failure raises and exits non-zero):
      System``) at 1M: scan mode, 4 shards, f16 payloads, L = 2,000, margin
      40, batch 64; ``build``, the 1,024 queries through ``search_batches``
      with ground truth from the kernel (recall@10 >= 0.98, ratio@100 <=
-     1.01, final ids equal to phase 5's), ``insert_live``, ``delete``,
+     1.01), its scan route equal to phase 13's 4-shard route (the default
+     and approx=False), ``insert_live``, ``delete``,
      ``rotate_and_migrate``, ``save_index`` and a fresh object's
      ``restore_index`` serving the same results;
  15. the five ``examples/torch_*.py`` as a user runs them (their default
@@ -98,7 +108,8 @@ Phases (any failure raises and exits non-zero):
      top-L); timed at [64, 1M] beside the plain twin, the library's bin
      minimum (``amin``), the exact top-L and its bound; then
      ``scan(approx=True)`` and ``scan_chunked(approx=True)`` over the 16
-     batches: each keeps a mean share >= 0.98 of the exact top-2,000.
+     batches: each keeps a mean share >= 0.98 of the exact top-2,000, and
+     the flat one equals phase 5's served route.
  17. right after phase 14: the sharded index and the facade at phase 13's
      point with the 4 shards spread over min(4, cards) cards, one slot a
      card (2 cards on a host of 3), or over 4 slots on cuda:0 on a host of
@@ -341,7 +352,9 @@ def phase_scan(dev) -> float:
               for d in ("cpu", dev)}
     require(torch.equal(states["cpu"].bits, states[dev].bits.cpu()), "bits")
     require(torch.equal(states["cpu"].popc, states[dev].popc.cpu()), "popc")
-    kw = dict(anchor=100, margin=40)
+    # the exact top-L: the default selection is approximate on the card and
+    # exact on the CPU (phase 16 holds the approximate one to its twin)
+    kw = dict(approx=False, anchor=100, margin=40)
     for q in (64, 7, 1):
         for fn, extra in ((hs.scan, {}), (hs.scan_chunked, {"chunk": 32_768})):
             res = {d: fn(states[d], qbits[:q].to(d),
@@ -353,8 +366,8 @@ def phase_scan(dev) -> float:
     st, qb, tb = states[dev], qbits.to(dev), torch.from_numpy(tomb).to(dev)
     ms = time_ms(lambda: hs.scan(st, qb, tb, 2000, **kw))
     log(f"phase 4 scan 100k x 3072 bits, Q in (64, 7, 1), L=2000, margin "
-        f"40: CUDA == CPU bit for bit (flat and chunked); CUDA flat scan at "
-        f"Q=64: {ms:.3f} ms")
+        f"40, approx=False: CUDA == CPU bit for bit (flat and chunked); CUDA "
+        f"flat scan at Q=64: {ms:.3f} ms")
     return ms
 
 
@@ -375,17 +388,18 @@ def read_launches() -> dict:
             "approx_topk": partial_reduce.launches}
 
 
-def scan_call(idx, queries):
-    """The scan that ``idx.route_batch`` runs for ``queries``, as a closure
-    over inputs already on the card: what CUDA events around it time is the
-    device's own work for one batch."""
+def scan_call(idx, queries, approx: bool = True):
+    """The scan that ``idx.route_batch`` runs for ``queries`` (the served
+    route selects approximately, ``approx=True``), as a closure over inputs
+    already on the card: what CUDA events around it time is the device's
+    own work for one batch."""
     from fspann_tpu_torch.ops import hamming_scan as hs
 
     rt, cb = idx.cfg.runtime, idx.cfg.paper.code_bits
     st, tomb = idx._scan_state, idx._tombstones_scan()
     qbits = torch.from_numpy(hs.unpack_bits_numpy(
         idx.encode_queries(queries)[0], cb)).to(idx.device)
-    kw = dict(anchor=rt.adaptive_decrypt_anchor,
+    kw = dict(approx=approx, anchor=rt.adaptive_decrypt_anchor,
               margin=rt.adaptive_decrypt_margin,
               floor=rt.adaptive_decrypt_floor)
     limit = min(rt.effective_refinement(), idx._n_rows)
@@ -393,6 +407,29 @@ def scan_call(idx, queries):
         return lambda: hs.scan_chunked(st, qbits, tomb, limit, code_bits=cb,
                                        **kw)
     return lambda: hs.scan(st, qbits, tomb, limit, **kw)
+
+
+def exact_route(idx, queries):
+    """``idx.route_batch(*idx.encode_queries(queries))`` with the exact
+    top-L: the same scan over the same state with ``approx=False``."""
+    return idx._map_external(scan_call(idx, queries, approx=False)())
+
+
+def scan_launches(rows: int, limit: int, chunk: int | None = None) -> int:
+    """``approx_topk`` launches of one scan batch over ``rows`` rows: one a
+    block (the whole state, or each chunk as ``hamming_scan.scan_chunks``
+    cuts it) whose selection is reduced (r > 0 in
+    ``reduction_output_size``); a block of r == 0 is the exact top-L."""
+    from fspann_tpu_torch.ops.approx_topk import reduction_output_size
+
+    if chunk is None or rows <= chunk:
+        widths = [rows]
+    else:
+        k = min(limit, chunk)
+        widths = [min(chunk, rows - s) if rows - s >= k else chunk
+                  for s in range(0, rows, chunk)]
+    return sum(reduction_output_size(c, min(limit, c))[1] > 0
+               for c in widths)
 
 
 def slice_cfg(**runtime):
@@ -443,9 +480,10 @@ def require_same(a, b, what) -> None:
 def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     """Phase 5; leaves its store in ``work/db`` for phases 10 and 11 and
     returns the kernel counts, every query's ids and distances, the L2
-    top-k kernel's record at the ground-truth shape, and what phases 10, 13
-    and 14 compare with: the serving peak of device memory, the bank, the
-    host-encoded codes and the scan route of every query."""
+    top-k kernel's record at the ground-truth shape, and what phases 10, 13,
+    14 and 16 compare with: the serving peak of device memory, the bank, the
+    host-encoded codes, and the served (approximate) and exact scan routes
+    of every query."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth
     from fspann_tpu_torch.ops import coding
@@ -494,6 +532,13 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     counts = read_launches()
     launches = counts["l2_topk"]
     require(launches > 0, "ground truth did not run the l2_topk kernel")
+    # the served route selects approximately: one launch a batch of the
+    # flat scan at 1M (the warm-up batch and the pass's 16)
+    per_batch = scan_launches(N_SLICE, slice_cfg().runtime
+                              .effective_refinement())
+    require(per_batch == 1 and counts["approx_topk"]
+            >= (1 + Q_SLICE // 64) * per_batch,
+            f"the served route did not run approx_topk: {counts}")
     rows = [r for r in sys_.profiler.rows if r.k == 10]
     nq = len(rows)
     log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
@@ -527,19 +572,39 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
         f"{qps_off:.1f} q/s, route wait {route_off:.3f} ms per query; every "
         f"id and distance equal")
     idx = sys_.index
+    before = read_launches()["approx_topk"]
     routed = [idx.route_batch(*idx.encode_queries(queries[s:s + 64]))
               for s in range(0, Q_SLICE, 64)]
+    served_launches = read_launches()["approx_topk"] - before
+    require(served_launches == Q_SLICE // 64 * per_batch,
+            f"{served_launches} approx_topk launches for {Q_SLICE // 64} "
+            f"served batches")
+    exact = [exact_route(idx, queries[s:s + 64])
+             for s in range(0, Q_SLICE, 64)]
+    served, want = (tuple(np.concatenate(
+        [getattr(r, f).cpu().numpy() for r in rs]) for f in ("ids", "scores"))
+        for rs in (routed, exact))
+    require((served[1] >= want[1]).all(), "a served score better than the "
+            "exact top-L's at its rank")
+    share = retained_share(served[0], want[0])
+    require(share.mean() >= APPROX_SHARE_GATE,
+            f"the served route kept {share.mean():.4f} of the exact top-L")
     b0 = idx.encode_queries(queries[:64])
     call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
     route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
+    exact_ms = time_ms(scan_call(idx, queries[:64], approx=False), reps=5)
+    log(f"  served route (approximate top-L, as the JAX package serves): "
+        f"{per_batch} approx_topk launch a batch, {served_launches} for the "
+        f"{Q_SLICE // 64} batches; share of the exact top-2,000 kept: mean "
+        f"{share.mean():.6f} min {share.min():.6f} (gate: mean >= "
+        f"{APPROX_SHARE_GATE})")
     log(f"  unpacked scan of one batch of 64 on inputs on the card: "
-        f"{route_ms:.3f} ms (CUDA events); route_batch from host codes, "
-        f"host work between launches included: {call_ms:.3f} ms")
+        f"{route_ms:.3f} ms served (approximate), {exact_ms:.3f} ms with "
+        f"approx=False (CUDA events); route_batch from host codes, host "
+        f"work between launches included: {call_ms:.3f} ms")
     extras = {"peak_serve": peak_serve, "bank": bank,
               "codes": idx._scan_codes, "route_ms": route_ms,
-              "route": tuple(np.concatenate(
-                  [getattr(r, f).cpu().numpy() for r in routed])
-                  for f in ("ids", "scores"))}
+              "route": want, "served_route": served}
     sys_.shutdown()
 
     # the kernel against its plain twin and the library call at the
@@ -674,11 +739,14 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
                                     approx=True))
         runs["chunked"].append(hs.scan_chunked(state, qb, no_tomb, APPROX_L,
                                                approx=True))
-        runs["exact"].append(hs.scan(state, qb, no_tomb, APPROX_L))
+        runs["exact"].append(hs.scan(state, qb, no_tomb, APPROX_L,
+                                     approx=False))
     counts = read_launches()
     got = {k: tuple(np.concatenate([getattr(x, f).cpu().numpy() for x in v])
                     for f in ("ids", "scores")) for k, v in runs.items()}
     require_same(got["exact"], p5["route"], "exact scan vs phase 5's route")
+    require_same(got["flat"], p5["served_route"],
+                 "scan(approx=True) vs phase 5's served route")
     # one kernel launch a flat batch, two a chunked one (full chunk + tail)
     require(counts["approx_topk"] == 3 * Q_SLICE // 64,
             f"approx_topk launches {counts}")
@@ -696,13 +764,15 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
     scan_ms = {name: time_ms(fn, reps=5) for name, fn in (
         ("approx", lambda: hs.scan(state, qb, no_tomb, APPROX_L,
                                    approx=True)),
-        ("exact", lambda: hs.scan(state, qb, no_tomb, APPROX_L)),
+        ("exact", lambda: hs.scan(state, qb, no_tomb, APPROX_L,
+                                  approx=False)),
         ("chunked approx", lambda: hs.scan_chunked(
             state, qb, no_tomb, APPROX_L, approx=True)),
         ("chunked exact", lambda: hs.scan_chunked(state, qb, no_tomb,
-                                                  APPROX_L)))}
-    log(f"  scan(approx=True) over the {Q_SLICE // 64} batches: the exact "
-        f"scan == phase 5's route; share of the exact top-{APPROX_L} kept: "
+                                                  APPROX_L, approx=False)))}
+    log(f"  scan(approx=True) over the {Q_SLICE // 64} batches == phase 5's "
+        f"served route, scan(approx=False) == its exact route; share of the "
+        f"exact top-{APPROX_L} kept: "
         f"flat mean {shares['flat'].mean():.6f} min "
         f"{shares['flat'].min():.6f}, chunked (2^19 rows) mean "
         f"{shares['chunked'].mean():.6f} min {shares['chunked'].min():.6f} "
@@ -1122,7 +1192,10 @@ def phase_packed(dev, unpacked_ms: float) -> None:
     require(torch.equal(host.words, packed.words.cpu()), "words CUDA != CPU")
     require(torch.equal(host.popc, packed.popc.cpu()), "popc CUDA != CPU")
     flat = hs.build_scan_state(codes, cb, device=dev)
-    kw = dict(anchor=100, margin=40)
+    # the exact top-L: the approximate one selects over each chunk's own
+    # width, so flat and chunked differ there (phase 16)
+    adaptive = dict(anchor=100, margin=40)
+    kw = dict(approx=False, **adaptive)
     chunked = dict(chunk=32_768, code_bits=cb, **kw)
     for q in (64, 7, 1):
         want = hs.scan(flat, qbits[:q], tb, 2000, **kw)
@@ -1156,7 +1229,7 @@ def phase_packed(dev, unpacked_ms: float) -> None:
 
     # the native host kernel against the CUDA scan
     t0 = time.perf_counter()
-    nat = native_scan.scan_topl(codes, qcodes, tomb, 2000, **kw)
+    nat = native_scan.scan_topl(codes, qcodes, tomb, 2000, **adaptive)
     native_ms = (time.perf_counter() - t0) * 1e3
     for f in FIELDS:
         require(np.array_equal(getattr(nat, f), getattr(want, f).cpu()
@@ -1172,7 +1245,7 @@ def phase_packed(dev, unpacked_ms: float) -> None:
     hs.scan_chunked(packed, qbits, tb, 2000, code_bits=cb, **kw)
     torch.cuda.synchronize()
     scratch = torch.cuda.max_memory_allocated() - held
-    log(f"phase 9 packed scan 100k x 3072 bits: words int32 "
+    log(f"phase 9 packed scan 100k x 3072 bits, approx=False: words int32 "
         f"{tuple(packed.words.shape)} ({packed.words.numel() * 4 / 1e6:.1f}"
         f" MB vs {flat.bits.numel() / 1e6:.1f} MB unpacked), CUDA == CPU; "
         f"packed chunked == unpacked flat on every field, Q in (64, 7, 1); "
@@ -1187,12 +1260,12 @@ def phase_packed(dev, unpacked_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_lifecycle(dev, work, base, queries, ref,
-                    p5: dict) -> tuple[dict, dict]:
+def phase_lifecycle(dev, work, base, queries, p5: dict) -> tuple[dict, dict]:
     """Phase 10: phase 5's store restored into a packed, capacity-padded
     system; serve, live insert in place and past capacity, delete, rotate,
-    flush, restore unpacked.  Returns the kernel counts and the restored
-    CUDA route of the first batch (for phase 11)."""
+    flush, restore into the same layout and unpacked.  Returns the kernel
+    counts and the unpacked restore's exact CUDA route of the first batch
+    (for phase 11)."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth, synthetic
     from fspann_tpu_torch.ops import hamming_scan as hs
@@ -1234,17 +1307,59 @@ def phase_lifecycle(dev, work, base, queries, ref,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     rows = [r for r in sys_.profiler.rows if r.k == 10]
-    require_same(serve(sys_, queries), ref, "packed serving vs phase 5")
-    log(f"  served {Q_SLICE} q, every id and distance equal to phase 5's: "
-        f"q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  route "
+    r10, ratio = agg.recall_at_k[10], agg.ratio_at_k[100]
+    log(f"  served {Q_SLICE} q: q/s {Q_SLICE / wall:.1f}  ART "
+        f"{agg.mean_art_ms:.3f} ms  route "
         f"{sum(r.route_ms for r in rows) / len(rows):.3f} ms per query  "
-        f"recall@10 {agg.recall_at_k[10]:.4f}  mean decrypted "
+        f"recall@10 {r10:.4f}  ratio@100 {ratio:.4f}  mean decrypted "
         f"{agg.mean_cand_decrypted:.1f}  peak device memory "
         f"{peak / 2**30:.2f} GiB while serving (unpacked scan point, phase "
         f"5: {p5['peak_serve'] / 2**30:.2f} GiB)")
     require(peak < p5["peak_serve"], f"the packed state's serving peak "
             f"{peak} is not under the unpacked scan point's "
             f"{p5['peak_serve']}")
+    require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
+    require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
+
+    # the served route (approximate, chunk by chunk) == the chunked scan with
+    # approx=True over phase 5's codes unpacked into the same padded rows;
+    # with approx=False == phase 5's exact route
+    cb = idx.cfg.paper.code_bits
+    limit = idx.cfg.runtime.effective_refinement()
+    per_batch = scan_launches(cap, limit, 1 << 19)
+    flat = hs.build_scan_state(np.concatenate(
+        [p5["codes"], np.zeros((cap - N_SLICE,) + p5["codes"].shape[1:],
+                               p5["codes"].dtype)]), cb, device=dev)
+    tomb = idx._tombstones_scan()
+    adaptive = dict(anchor=idx.cfg.runtime.adaptive_decrypt_anchor,
+                    margin=idx.cfg.runtime.adaptive_decrypt_margin,
+                    floor=idx.cfg.runtime.adaptive_decrypt_floor)
+    exact = []
+    before = read_launches()["approx_topk"]
+    for s in range(0, Q_SLICE, 64):
+        qc, qk = idx.encode_queries(queries[s:s + 64])
+        got = idx.route_batch(qc, qk)
+        qbits = torch.from_numpy(hs.unpack_bits_numpy(qc, cb)).to(dev)
+        want = hs.scan_chunked(flat, qbits, tomb, limit, **adaptive)
+        for f in FIELDS:
+            require(torch.equal(getattr(got, f), getattr(want, f)),
+                    ("served packed route vs chunked scan of the bits", s, f))
+        exact.append(exact_route(idx, queries[s:s + 64]))
+    served_launches = read_launches()["approx_topk"] - before
+    require(served_launches == 2 * Q_SLICE // 64 * per_batch,
+            f"{served_launches} approx_topk launches for {Q_SLICE // 64} "
+            f"served batches and their twins")
+    require_same(tuple(np.concatenate([getattr(r, f).cpu().numpy()
+                                       for r in exact])
+                       for f in ("ids", "scores")), p5["route"],
+                 "exact packed route vs phase 5's exact route")
+    del flat, tomb, got, want, exact
+    torch.cuda.empty_cache()
+    log(f"  served route of every batch == scan_chunked(approx=True) over "
+        f"phase 5's codes unpacked into the same {cap} rows, every field "
+        f"({per_batch} approx_topk launches a batch: chunks of 2^19 rows, "
+        f"the {cap - 2 * (1 << 19)}-row tail is not reduced); with "
+        f"approx=False == phase 5's exact route")
     b0 = idx.encode_queries(queries[:64])
     call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
     route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
@@ -1298,17 +1413,32 @@ def phase_lifecycle(dev, work, base, queries, ref,
     t0 = time.perf_counter()
     sys_.flush_all()
     t_flush = time.perf_counter() - t0
+    grown = idx._scan_rows
+    first = exact_route(idx, queries[:64])
     sys_.shutdown()
     del sys_, st, w, idx
 
-    back = ForwardSecureANNSystem(slice_cfg(scan_native="off"), db, 128,
-                                  query_batch=64)
+    # restored into the layout it was served from (packed, the grown row
+    # count): the same approximate selection, so the same results
+    back = ForwardSecureANNSystem(
+        slice_cfg(scan_packed="on", scan_capacity_rows=grown,
+                  scan_native="off"), db, 128, query_batch=64)
     back_n = back.restore_index_from_disk()
     require(back_n == N_SLICE + len(extra) - len(gone), back_n)
-    require(isinstance(back.index._scan_state, hs.ScanState), "not unpacked")
+    require(back.index._scan_rows == grown, back.index._scan_rows)
     require_same(serve(back, probe), before, "after flush and restore")
-    first = back.index.route_batch(*back.index.encode_queries(queries[:64]))
-    cuda_route = {f: getattr(first, f).cpu().numpy() for f in FIELDS}
+    back.shutdown()
+    # restored unpacked: the exact route is the one before the flush
+    back = ForwardSecureANNSystem(slice_cfg(scan_native="off"), db, 128,
+                                  query_batch=64)
+    require(back.restore_index_from_disk() == back_n, "unpacked restore")
+    require(isinstance(back.index._scan_state, hs.ScanState), "not unpacked")
+    again = exact_route(back.index, queries[:64])
+    for f in ("ids", "scores", "n_unique", "n_dec"):
+        require(np.array_equal(getattr(first, f).cpu().numpy(),
+                               getattr(again, f).cpu().numpy()),
+                ("exact route after flush and unpacked restore", f))
+    cuda_route = {f: getattr(again, f).cpu().numpy() for f in FIELDS}
     back.shutdown()
     counts = read_launches()
     require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
@@ -1316,15 +1446,16 @@ def phase_lifecycle(dev, work, base, queries, ref,
         f"never returned; rotation v{rep['old_version']} -> "
         f"v{rep['new_version']} re-encrypted {rep['reencrypted']} in "
         f"{t_rot:.2f} s, 64 queries unchanged; flush_all {t_flush:.2f} s; "
-        f"unpacked restore of {back_n} live rows unchanged; kernel "
-        f"launches on this path {counts}")
+        f"restore of {back_n} live rows into the served layout ({grown} "
+        f"rows, packed): results unchanged; unpacked restore: exact route "
+        f"unchanged; kernel launches on this path {counts}")
     torch.cuda.empty_cache()
     return counts, cuda_route
 
 
 def phase_native(work, queries, cuda_route) -> None:
-    """Phase 11: the same store served by the native host scan; its first
-    batch's route equals the CUDA scan's."""
+    """Phase 11: the same store served by the native host scan (exact);
+    its first batch's route equals the CUDA scan's with approx=False."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.ops import native_scan
 
@@ -1347,7 +1478,7 @@ def phase_native(work, queries, cuda_route) -> None:
     finally:
         sys_.shutdown()
     log(f"phase 11 native host scan over {n} live rows "
-        f"({sys_.index._n_rows} scanned), Q=64: route == CUDA route on "
+        f"({sys_.index._n_rows} scanned), Q=64: route == exact CUDA route on "
         f"every field; {ms[0]:.1f}, {ms[1]:.1f} ms per batch at "
         f"{native_scan._num_threads()} thread(s) on {os.cpu_count()} cores")
 
@@ -1442,9 +1573,9 @@ def scan_routes(idx, queries, **kw) -> tuple[np.ndarray, np.ndarray]:
 
 def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     """Phase 13: the sharded index at 1M on the card.  Returns the kernel
-    counts and what phase 17 compares with: the exact and the approximate
-    scan route of every query at 4 shards and the first batch's probe
-    route with the re-rank."""
+    counts and what phases 14 and 17 compare with: the exact and the
+    approximate (default) scan route of every query at 4 shards and the
+    first batch's probe route with the re-rank."""
     from fspann_tpu_torch.io import synthetic
     from fspann_tpu_torch.ops import code_hamming as ch_mod
     from fspann_tpu_torch.ops import coding, routing
@@ -1461,7 +1592,7 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     reset_launches()                   # counts from here are the path's
 
     def build(nd, layout, keep_codes=False, capacity=SHARD_CAP):
-        idx = ShardedIndex(make_mesh(nd, dev), bank, block_size=128)
+        idx = ShardedIndex(make_mesh(nd, device=dev), bank, block_size=128)
         t0 = time.perf_counter()
         idx.build(base_q, keep_base=False, keep_codes=keep_codes,
                   keep_bits=layout, capacity=capacity)
@@ -1471,9 +1602,9 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     # device encode against phase 5's host encode, and the single-device
     # scan over the sharded index's own codes: the reference of every route
     a4, t_a4 = build(4, True, keep_codes=True)
-    require(a4.bits.is_cuda and a4.table.ids.is_cuda and a4.tombs.is_cuda,
-            "sharded state not on the card")
-    codes = coding.words_to_numpy(a4.point_codes[:N_SLICE])
+    require(a4.bits[0].is_cuda and a4.table[0].ids.is_cuda
+            and a4.tombs[0].is_cuda, "sharded state not on the card")
+    codes = coding.words_to_numpy(a4.point_codes[0][:N_SLICE])
     flips = differing_bits(codes, p5["codes"])
     qwords = coding.encode(torch.from_numpy(queries).to(dev),
                            coding.bank_to(bank, dev))[0]
@@ -1482,7 +1613,8 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     state = hs.build_scan_state(codes, cb, device=dev)
     no_tomb = torch.zeros(N_SLICE, dtype=torch.bool, device=dev)
     want = [hs.scan(state, hs.unpack_bits_device(qwords[s:s + 64], cb),
-                    no_tomb, SHARD_L) for s in range(0, Q_SLICE, 64)]
+                    no_tomb, SHARD_L, approx=False)
+            for s in range(0, Q_SLICE, 64)]
     want = tuple(np.concatenate([getattr(r, f).cpu().numpy() for r in want])
                  for f in ("ids", "scores"))
     del state, no_tomb
@@ -1501,7 +1633,9 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
         log(f"  the encoders differ, so phase 5's route is no reference: "
             f"{same:.6f} of its ids are equal")
 
-    # every combination: shards x layout x merge; device ms per batch of 64
+    # every combination: shards x layout x merge, the exact top-L (the
+    # approximate one selects over each shard's or chunk's own width);
+    # device ms per batch of 64 of the default (approximate) route
     ms, secs, kept = {}, {(4, True): t_a4}, {(4, True): a4}
     batch0 = queries[:64]
     for nd in (4, 8, 1):
@@ -1511,7 +1645,7 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
                 idx, secs[nd, layout] = build(nd, layout)
             for merge in ("ici", "host"):
                 idx.merge_backend = merge
-                require_same(scan_routes(idx, queries), want,
+                require_same(scan_routes(idx, queries, approx=False), want,
                              f"sharded scan, {nd} shards, "
                              f"{'packed' if layout == 'packed' else 'bits'}, "
                              f"merge {merge}")
@@ -1527,34 +1661,37 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     b4 = kept[4, "packed"]
     lay = {True: "unpacked", "packed": "packed"}
 
-    # approx=True at 4 shards: each shard's top-L selected by the
-    # approx_topk kernel over its own rows (r 1), merged exactly; the
+    # the default (approx=True) at 4 shards: each shard's top-L selected by
+    # the approx_topk kernel over its own rows (r 1), merged exactly; the
     # packed layout scans a shard as one chunk, so it selects the same
     before = read_launches()["approx_topk"]
-    approx = scan_routes(a4, queries, approx=True)
+    approx = scan_routes(a4, queries)
     require(read_launches()["approx_topk"] == before + 4 * Q_SLICE // 64,
-            "the 4-shard approx scan did not launch approx_topk once per "
-            "shard and batch")
-    require_same(scan_routes(b4, queries, approx=True), approx,
+            "the 4-shard scan did not launch approx_topk once per shard and "
+            "batch")
+    require_same(scan_routes(a4, queries, approx=True), approx,
+                 "approx=True vs the default")
+    require_same(scan_routes(b4, queries), approx,
                  "packed vs unpacked approx scan")
     share = retained_share(approx[0], want[0])
     require(share.mean() >= APPROX_SHARE_GATE,
             f"4-shard approx scan kept {share.mean():.4f}")
-    approx_ms = time_ms(lambda: a4.scan_route_dispatch(batch0, limit=SHARD_L,
-                                                       approx=True), reps=5)
-    log(f"  approx=True at 4 shards ({a4.shard_rows} rows a shard: W, r = "
-        f"{reduction_output_size(a4.shard_rows, SHARD_L)}), unpacked == "
-        f"packed: share of the exact top-{SHARD_L} kept mean "
+    exact_ms = time_ms(lambda: a4.scan_route_dispatch(batch0, limit=SHARD_L,
+                                                      approx=False), reps=5)
+    log(f"  the default, approx=True, at 4 shards ({a4.shard_rows} rows a "
+        f"shard: W, r = {reduction_output_size(a4.shard_rows, SHARD_L)}), "
+        f"unpacked == packed: share of the exact top-{SHARD_L} kept mean "
         f"{share.mean():.6f} min {share.min():.6f} (gate: mean >= "
-        f"{APPROX_SHARE_GATE}); {approx_ms:.3f} ms per batch of 64 (exact "
-        f"{ms[4, True, 'ici']:.3f})")
-    log(f"  scan route of {Q_SLICE} q at L={SHARD_L} == the single-device "
-        f"scan, ids and scores, at 1, 4 and 8 shards x unpacked, packed x "
-        f"merge on the device, on the host")
+        f"{APPROX_SHARE_GATE}); {ms[4, True, 'ici']:.3f} ms per batch of 64 "
+        f"(approx=False {exact_ms:.3f})")
+    log(f"  scan route of {Q_SLICE} q at L={SHARD_L}, approx=False == the "
+        f"single-device scan, ids and scores, at 1, 4 and 8 shards x "
+        f"unpacked, packed x merge on the device, on the host")
     log("  build s: " + ", ".join(
         f"{nd} shards {lay[la]} {t:.2f}" for (nd, la), t in secs.items()))
-    log("  device ms per batch of 64 (CUDA events; query upload, device "
-        "encode, per-shard scan, merge, pinned copy): " + "; ".join(
+    log("  device ms per batch of 64 of the default (approximate) route "
+        "(CUDA events; query upload, device encode, per-shard scan, merge, "
+        "pinned copy): " + "; ".join(
             f"{nd} shards {lay[la]} {ms[nd, la, 'ici']:.3f} (host merge "
             f"{ms[nd, la, 'host']:.3f})" for nd in (1, 4, 8)
             for la in (True, "packed")))
@@ -1563,7 +1700,7 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     # capacity: the one-shot build pads with copies of the last row, the
     # stream with zero rows, and the tables hold the (masked) pad rows
     one, _ = build(4, True, capacity=None)
-    st = ShardedIndex(make_mesh(4, dev), bank, block_size=128)
+    st = ShardedIndex(make_mesh(4, device=dev), bank, block_size=128)
     t0 = time.perf_counter()
     total = st.build_stream(
         (base_q[s:s + 100_000] for s in range(0, N_SLICE, 100_000)), N_SLICE,
@@ -1571,26 +1708,27 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require(total == N_SLICE and st.shard_rows == one.shard_rows, total)
-    for f in one.table._fields:
-        x, y = getattr(one.table, f), getattr(st.table, f)
+    for f in one.table[0]._fields:
+        x, y = getattr(one.table[0], f), getattr(st.table[0], f)
         require((x is None and y is None) or torch.equal(x, y),
                 ("streamed table", f))
-    require(torch.equal(st.bits, one.bits) and torch.equal(st.popc, one.popc),
-            "streamed scan state")
-    require_same(scan_routes(st, queries), want, "streamed build's route")
+    require(torch.equal(st.bits[0], one.bits[0])
+            and torch.equal(st.popc[0], one.popc[0]), "streamed scan state")
+    require_same(scan_routes(st, queries, approx=False), want,
+                 "streamed build's route")
     log(f"  build_stream in 100000-row chunks {t_stream:.2f} s: stacked "
-        f"tables {tuple(st.table.ids.shape)}, scan state and route == the "
-        f"one-shot build's")
+        f"tables {tuple(st.table[0].ids.shape)}, scan state and route == "
+        f"the one-shot build's")
     del st, one
     torch.cuda.empty_cache()
 
     # probe route with the re-rank at 4 shards against CPU copies
-    host = ShardedIndex(make_mesh(4, "cpu"), bank, block_size=128)
+    host = ShardedIndex(make_mesh(4, device="cpu"), bank, block_size=128)
     host.n, host.shard_rows = a4.n, a4.shard_rows
-    host.table = type(a4.table)(*(None if f is None else f.cpu()
-                                  for f in a4.table))
-    host.point_codes = a4.point_codes.cpu()
-    host.tombs = a4.tombs.cpu()
+    host.table = [type(t)(*(None if f is None else f.cpu() for f in t))
+                  for t in a4.table]
+    host.point_codes = [p.cpu() for p in a4.point_codes]
+    host.tombs = [p.cpu() for p in a4.tombs]
     paths = []
 
     def hamming_spy(pc, qcodes, ids, ascending=False):
@@ -1636,10 +1774,11 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     gone = np.intersect1d(got[0][got[0] >= 0], want[0][:64])[:32] \
         .astype(np.int64)
     require(len(gone) == 32, "fewer than 32 ids in both routes")
-    tombs_ptr = a4.tombs.data_ptr()
+    tombs_ptr = a4.tombs[0].data_ptr()
     for idx in (a4, b4):
         idx.mark_deleted(gone)
-    require(a4.tombs.data_ptr() == tombs_ptr, "mark_deleted moved the mask")
+    require(a4.tombs[0].data_ptr() == tombs_ptr,
+            "mark_deleted moved the mask")
     for name, res in (("scan", a4.scan_route(batch0, limit=SHARD_L)),
                       ("packed scan", b4.scan_route(batch0, limit=SHARD_L)),
                       ("probe", a4.route(batch0, probes=16,
@@ -1651,8 +1790,8 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     # live inserts in place, found by self search
     extra, _ = synthetic.lsh_hard_corpus(4 * 16_384, 128, 1, seed=43)
     extra = f16_round_trip(extra)
-    ptrs = [(i.words if i.words is not None else i.bits).data_ptr()
-            for i in (a4, b4)] + [a4.popc.data_ptr(), b4.popc.data_ptr()]
+    ptrs = [(i.words if i.words is not None else i.bits)[0].data_ptr()
+            for i in (a4, b4)] + [a4.popc[0].data_ptr(), b4.popc[0].data_ptr()]
     ins_ms = []
     for i in range(4):
         sl = slice(i * 16_384, (i + 1) * 16_384)
@@ -1662,8 +1801,9 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             ins_ms.append((time.perf_counter() - t0) * 1e3)
             require(ids[0] == N_SLICE + sl.start and len(ids) == 16_384, ids)
-    require([(i.words if i.words is not None else i.bits).data_ptr()
-             for i in (a4, b4)] + [a4.popc.data_ptr(), b4.popc.data_ptr()]
+    require([(i.words if i.words is not None else i.bits)[0].data_ptr()
+             for i in (a4, b4)] + [a4.popc[0].data_ptr(),
+                                   b4.popc[0].data_ptr()]
             == ptrs, "append_scan_rows moved the scan state")
     require(a4.n == b4.n == N_SLICE + len(extra) and a4.point_codes is None,
             (a4.n, b4.n))
@@ -1686,15 +1826,15 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     del a4
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    back = ShardedIndex.restore_state(path, make_mesh(4, dev),
+    back = ShardedIndex.restore_state(path, make_mesh(4, device=dev),
                                       keep_bits="packed")
     torch.cuda.synchronize()
     t_restore = time.perf_counter() - t0
     back.mark_deleted(gone)
-    require(back.n == b4.n and back.words.is_cuda, back.n)
+    require(back.n == b4.n and back.words[0].is_cuda, back.n)
     require_same(scan_routes(back, queries[:128]), after, "restored route")
-    require(torch.equal(back.words, b4.words)
-            and torch.equal(back.popc, b4.popc), "restored words")
+    require(torch.equal(back.words[0], b4.words[0])
+            and torch.equal(back.popc[0], b4.popc[0]), "restored words")
     peak = torch.cuda.max_memory_allocated()
     counts = read_launches()
     log(f"  32 deleted ids left the scan, packed scan, probe and re-rank "
@@ -1711,12 +1851,14 @@ def phase_sharded(dev, base, queries, work, p5) -> tuple[dict, dict]:
     return counts, {"scan": want, "approx": approx, "probe": got}
 
 
-def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
-                                                                 tuple]:
+def phase_distributed(dev, base, queries, work, p5, ref, p13) -> tuple[dict,
+                                                                      tuple]:
     """Phase 14: the distributed encrypted facade at 1M, scan mode, 4
     shards, through ``build`` (the one-shot build: the bank's sample is
-    phase 5's, the first 100,000 stored rows).  Returns the kernel counts
-    and the served ids and distances (phase 17 compares with them)."""
+    phase 5's, the first 100,000 stored rows).  Its scan route is phase
+    13's 4-shard route (the default, approximate one; and with
+    approx=False the exact one).  Returns the kernel counts and the served
+    ids and distances (phase 17 compares with them)."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
     from fspann_tpu_torch.io import groundtruth, synthetic
     from fspann_tpu_torch.parallel.serving import DistributedEncryptedSystem
@@ -1735,7 +1877,7 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
     release_earlier_phases()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                   # counts from here are the path's
-    sys_ = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, dev))
+    sys_ = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, device=dev))
     t0 = time.perf_counter()
     sys_.build(base, sample=100_000, capacity=SHARD_CAP)
     torch.cuda.synchronize()
@@ -1745,7 +1887,7 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
     same_bank = all(np.array_equal(getattr(bank, f), getattr(p5["bank"], f))
                     for f in ("alpha", "r", "omega"))
     require(same_bank, "the facade's bank is not phase 5's")
-    require(idx.bits is not None and idx.bits.is_cuda and idx.base is None
+    require(idx.bits is not None and idx.bits[0].is_cuda and idx.base is None
             and idx.merge_backend == cfg.runtime.mesh_merge, "facade state")
     per_shard = [len(s.meta) for s in sys_.store.shards]
     require(per_shard == [max(0, min(N_SLICE - s * idx.shard_rows,
@@ -1763,6 +1905,10 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
            np.concatenate([r[1] for r in res]))
     counts = read_launches()
     require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
+    # the served route: one approx_topk launch a shard and batch (the
+    # warm-up batch and the pass's 16)
+    require(counts["approx_topk"] >= 4 * (1 + Q_SLICE // 64),
+            f"the served route did not run approx_topk: {counts}")
     require(got[0].shape == (Q_SLICE, 100) and got[0].dtype == np.int64
             and np.isfinite(got[1]).all(), "result shape")
     recalls, ratios = ForwardSecureANNSystem._metrics_block(
@@ -1783,19 +1929,25 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
         f"(serving); kernel launches on this path {counts}")
     require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
     require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
-    require(np.array_equal(got[0], ref[0]), f"final ids differ from phase "
-            f"5's in {int((got[0] != ref[0]).sum())} places")
-    require(np.allclose(got[1], ref[1], rtol=1e-6, atol=0), "distances "
-            "differ from phase 5's")
+    # the facade's scan route is phase 13's 4-shard route: the approximate
+    # one it serves, and the exact one with approx=False (phase 5's final
+    # ids came from the flat scan's selection, another approximation)
+    require_same(scan_routes(idx, queries), p13["approx"],
+                 "the facade's route vs phase 13's 4-shard route")
+    require_same(scan_routes(idx, queries, approx=False), p13["scan"],
+                 "the facade's exact route vs phase 13's")
+    log(f"  the facade's scan route == phase 13's 4-shard route (the "
+        f"default, approximate) and its exact one (approx=False), ids and "
+        f"scores of the {Q_SLICE} queries")
 
     # lifecycle: live insert, delete, rotation, checkpoint, fresh restore
     extra, _ = synthetic.lsh_hard_corpus(16_384, 128, 1, seed=47)
-    ptr = idx.bits.data_ptr()
+    ptr = idx.bits[0].data_ptr()
     t0 = time.perf_counter()
     new_ids = sys_.insert_live(extra)
     ins_ms = (time.perf_counter() - t0) * 1e3
     require(new_ids[0] == N_SLICE and sys_.n == N_SLICE + len(extra)
-            and idx.bits.data_ptr() == ptr, "insert_live")
+            and idx.bits[0].data_ptr() == ptr, "insert_live")
     pick = np.random.default_rng(7).choice(len(extra), 64, replace=False)
     own = served(sys_, extra[pick], k=10)[0]
     require((own[:, 0] == new_ids[pick]).all(), "appended rows not first")
@@ -1817,7 +1969,7 @@ def phase_distributed(dev, base, queries, work, p5, ref) -> tuple[dict,
     sys_.close()
     del sys_, idx
     torch.cuda.empty_cache()
-    back = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, dev))
+    back = DistributedEncryptedSystem(cfg, db, 128, mesh=make_mesh(4, device=dev))
     try:
         t0 = time.perf_counter()
         n_back = back.restore_index()
@@ -2037,9 +2189,9 @@ def phase_multislot(base, queries, work, refs) -> dict:
         f"distances ({Q_SLICE / wall:.1f} q/s, build {t_build:.1f} s)")
     log("  build s: " + ", ".join(f"{lay[la]} {v:.2f}"
                                   for la, v in secs.items())
-        + "; device ms per batch of 64 (CUDA events on every card, the "
-        "longest span; query upload, device encode, per-shard scan, "
-        "gather, merge, pinned copy): " + "; ".join(
+        + "; device ms per batch of 64 of the default (approximate) route "
+        "(CUDA events on every card, the longest span; query upload, device "
+        "encode, per-shard scan, gather, merge, pinned copy): " + "; ".join(
             f"{lay[la]} {ms[la, 'ici']:.3f} (host merge "
             f"{ms[la, 'host']:.3f})" for la in lay)
         + f"; probe route with the re-rank {probe_ms:.3f}")
@@ -2124,12 +2276,12 @@ def main() -> int:
                                          profile="--profile" in sys.argv[1:])
         phase_packed(dev, unpacked_ms)
         life_counts, cuda_route = phase_lifecycle(dev, work, base, queries,
-                                                  ref, p5)
+                                                  p5)
         phase_native(work, queries, cuda_route)
         cli_counts = phase_cli(base, queries, work)
         shard_counts, p13 = phase_sharded(dev, base, queries, work, p5)
         mesh_counts, p14 = phase_distributed(dev, base, queries, work, p5,
-                                             ref)
+                                             ref, p13)
         multi_counts = phase_multislot(base, queries, work, {
             **p13, "facade": p14, "bank": p5["bank"]})
         del base, queries, ref, p5, p13, p14

@@ -4,7 +4,7 @@ Demonstrates ``DistributedEncryptedSystem`` (``examples/mesh_serving.py``
 on ``fspann_tpu_torch``): streaming encrypted build, scan queries with the
 merge on the device, live insertion, deletion/undelete, forced key rotation
 with partial migration, storage compaction, and checkpoint/restore.  The
-8 shards share one device slot here (``make_mesh(8, device)``): row ranges
+8 shards share one device slot here (``make_mesh(8, device=device)``): row ranges
 of one resident tensor on the card (or on the CPU with ``--device cpu``);
 ``make_mesh(8)`` would spread them over the visible cards.
 
@@ -45,7 +45,7 @@ def main(device="cuda"):
     work = tempfile.mkdtemp(prefix="fspann_mesh_")
     try:
         sys_ = DistributedEncryptedSystem(cfg, work, d,
-                                          mesh=make_mesh(8, device))
+                                          mesh=make_mesh(8, device=device))
         mesh = sys_.mesh
         print(f"mesh: {sys_.ndev} shards over {len(mesh.slots)} slot(s) on "
               f"{', '.join(map(str, mesh.devices))}")
@@ -103,7 +103,7 @@ def main(device="cuda"):
         sys_.save_index()
         sys_.close()
         back = DistributedEncryptedSystem(cfg, work, d,
-                                          mesh=make_mesh(8, device))
+                                          mesh=make_mesh(8, device=device))
         assert back.restore_index() == n + 64
         ids_b, _ = back.search_batch(queries, k)
         print(f"restore: {back.n} rows, query results "

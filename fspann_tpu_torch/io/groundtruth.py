@@ -67,11 +67,14 @@ def precompute(base: np.ndarray, queries: np.ndarray, k: int = 100,
 
     backend: "kernel" (the streaming L2 top-k kernel, ops/l2_topk.py —
     the default on CUDA) or "torch" (its plain twin: chunked matmul +
-    top-k, ops/refine.bruteforce_topk — the default on the CPU).
+    top-k, ops/refine.bruteforce_topk — the default on the CPU).  The JAX
+    package's names mean the same two paths: "pallas" (its streaming
+    kernel) is "kernel", "xla" (its chunked matmul + top-k) is "torch".
     ``device`` defaults to the CUDA card
     (:func:`fspann_tpu_torch.resolve_device`).
     """
     device = resolve_device(device)
+    backend = {"pallas": "kernel", "xla": "torch"}.get(backend, backend)
     if backend is None:
         backend = "kernel" if device.type == "cuda" else "torch"
     # torch.tensor copies, so read-only inputs (mapped vecs files) are fine

@@ -85,20 +85,20 @@ def _word_bytes(words: torch.Tensor) -> torch.Tensor:
     return by.reshape(*w32.shape[:-1], w32.shape[-1] * 4)
 
 
-def unpack_bits_device(words: torch.Tensor, code_bits: int) -> torch.Tensor:
+def unpack_bits_device(codes: torch.Tensor, code_bits: int) -> torch.Tensor:
     """Device-side unpack: int32 or int64 word bit patterns [..., G, W] →
     int8 [..., G*code_bits], the MSB-first convention of
     :func:`unpack_bits_numpy`.  Every operand is one byte wide: the scratch
     is the words' bytes plus the bits (8 per byte)."""
-    g = words.shape[-2]
-    by = _word_bytes(words)                                 # [..., G, W*4]
+    g = codes.shape[-2]
+    by = _word_bytes(codes)                                 # [..., G, W*4]
     # the shifts that bring a byte's bits out MSB first, made on the device
     # (a host constant would cost a blocking copy per chunk)
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=words.device)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=codes.device)
     bits = by[..., None] >> shifts                          # [..., G, W*4, 8]
     bits = bits.bitwise_and_(1).view(torch.int8)
-    bits = bits.reshape(*words.shape[:-1], -1)[..., :code_bits]
-    return bits.reshape(*words.shape[:-2], g * code_bits)
+    bits = bits.reshape(*codes.shape[:-1], -1)[..., :code_bits]
+    return bits.reshape(*codes.shape[:-2], g * code_bits)
 
 
 def _popcounts(words: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -117,7 +117,7 @@ def _popcounts(words: torch.Tensor, chunk: int) -> torch.Tensor:
 
 
 def build_scan_state(codes: np.ndarray, code_bits: int,
-                     device=None, chunk: int = 65_536) -> ScanState:
+                     chunk: int = 65_536, *, device=None) -> ScanState:
     """Upload the PACKED words chunk by chunk and unpack ON DEVICE into a
     preallocated int8 bit matrix (8× fewer bytes cross the host link than
     a host unpack; the device peak is the matrix plus one chunk's
@@ -136,7 +136,7 @@ def build_scan_state(codes: np.ndarray, code_bits: int,
     return ScanState(bits, popc)
 
 
-def build_scan_state_packed(codes: np.ndarray, code_bits: int,
+def build_scan_state_packed(codes: np.ndarray, code_bits: int, *,
                             device=None,
                             chunk: int = 65_536) -> PackedScanState:
     """Upload the packed words as int32 bit patterns (4 bytes per 32 code
@@ -229,22 +229,22 @@ def _select(dots: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
 
 
 def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
-         limit: int, anchor: int = 0, margin: int = 0,
-         floor: int = 0, *, approx: bool = False) -> RouteResult:
-    """Global fine-Hamming ranking: top-``limit`` ids per query, exact
-    unless ``approx``.
+         limit: int, approx: bool = True, anchor: int = 0, margin: int = 0,
+         floor: int = 0) -> RouteResult:
+    """Global fine-Hamming ranking: top-``limit`` ids per query.
 
     Args:
       state: corpus bit matrix + popcounts.
       qbits: int8 [Q, B] unpacked query code bits, on the state's device.
       tombstones: bool [N] deleted mask.
       limit: L — decrypt budget per query.
+      approx: select with ``approx_topk.approx_rank_topk`` (the TPU's
+        ``lax.approx_max_k`` at recall_target 0.98: each true top-L
+        element kept with ~98% probability; exact on a CPU tensor).
+        ``False`` = the exact top-L.
       anchor/margin/floor: when ``margin`` > 0, also return a per-query
         adaptive decrypt budget (:func:`_adaptive_count`) in
         ``RouteResult.n_dec``.
-      approx: select with ``approx_topk.approx_rank_topk`` (the TPU's
-        ``lax.approx_max_k`` at recall_target 0.98, the JAX package's
-        default); the port's default is the exact top-L.
     """
     n = state.bits.shape[0]
     k = min(limit, n)
@@ -255,8 +255,7 @@ def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
 
 def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
                      popc_c: torch.Tensor, dead_c: torch.Tensor, start: int,
-                     start_c: int, carry: tuple, *,
-                     approx: bool = False) -> tuple:
+                     start_c: int, carry: tuple, approx: bool) -> tuple:
     """One chunked-scan step: score ``bits_c`` (int8 [chunk, B]) against
     ``qbits``, mask dead + tail-duplicate rows (``start_c`` is the clamped
     slice origin; rows with index < ``start`` were already scanned), take
@@ -281,7 +280,7 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
 
 def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
                 qbits: torch.Tensor, limit: int, chunk: int,
-                code_bits: int = 0, *, approx: bool = False
+                code_bits: int = 0, *, approx: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The running top-k loop of the chunked scan, shared by
     :func:`scan_chunked` and the sharded packed step
@@ -314,8 +313,8 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
 
 def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
                  tombstones: torch.Tensor, limit: int, chunk: int = 1 << 19,
-                 anchor: int = 0, margin: int = 0, floor: int = 0,
-                 code_bits: int = 0, *, approx: bool = False) -> RouteResult:
+                 approx: bool = True, anchor: int = 0, margin: int = 0,
+                 floor: int = 0, code_bits: int = 0) -> RouteResult:
     """:func:`scan` with the corpus processed in ``chunk``-row blocks and a
     running top-L merge (:func:`scan_chunks`) — the [Q, N] rank intermediate
     becomes [Q, chunk], so memory stays flat as N grows.
@@ -333,8 +332,8 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     if n <= chunk:
         st = ScanState(unpack_bits_device(state.words, code_bits),
                        state.popc) if packed else state
-        return scan(st, qbits, tombstones, limit, anchor, margin, floor,
-                    approx=approx)
+        return scan(st, qbits, tombstones, limit, approx, anchor, margin,
+                    floor)
     carry = scan_chunks(state.words if packed else state.bits, state.popc,
                         tombstones, qbits, limit, chunk,
                         code_bits if packed else 0, approx=approx)

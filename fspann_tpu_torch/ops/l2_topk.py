@@ -114,7 +114,7 @@ def blocks_per_sm() -> int:
     return got
 
 
-def l2_topk(base: torch.Tensor, queries: torch.Tensor, k: int
+def l2_topk(base: torch.Tensor, queries: torch.Tensor, k: int = 100
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact L2 top-``k`` of ``queries`` over ``base``.
 

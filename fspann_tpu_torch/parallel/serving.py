@@ -17,9 +17,10 @@ placement matching the index's shards), and a query is:
   stage C  exact L2 + top-k on the host (BLAS)
 
 The reference has no distributed analogue (its only scale-out is N local
-RocksDB shards, common/ShardedMetadataManager.java).  Stage A ranks exactly:
-the scan's ``approx`` stays at the port's default, False (the JAX facade
-serves with the TPU's approximate top-L).
+RocksDB shards, common/ShardedMetadataManager.java).  The scan route of
+stage A passes no ``approx``, as the JAX facade does: each shard's top-L is
+the approximate selection (``ops/approx_topk``, the TPU's ``approx_max_k``)
+and the merge over the shards is exact.
 """
 
 from __future__ import annotations

@@ -21,12 +21,11 @@ order.  A slot is a torch device, and two slots may name the same one (the
 CPU tests emulate an 8-device mesh so; one card runs the multi-slot code
 so).  Every resident array (``bits``, ``words``, ``popc``, ``tombs``,
 ``point_codes``, ``base``, and the per-shard partition tables stacked ``[n
-per slot, G, P, ...]``) is ONE tensor per slot holding that slot's shards
-back to back, on the slot's device; a shard is a view of its range, never
-a copy.  On a one-slot mesh the attribute is that tensor; on several slots
-it is the tuple of them in slot order (:meth:`ShardedIndex._per_device`
-gives the list either way, :meth:`ShardedIndex._gather_host` the host
-concatenation).
+per slot, G, P, ...]``) is a list with ONE tensor per slot, whatever the
+slot count, holding that slot's shards back to back on the slot's device;
+a shard is a view of its range, never a copy
+(:meth:`ShardedIndex._per_device` gives the list,
+:meth:`ShardedIndex._gather_host` the host concatenation).
 
 A step replicates the queries to every distinct device and encodes them
 there (the JAX package's ``P(None)`` queries), then issues every shard's
@@ -52,9 +51,9 @@ shard-agnostic: candidate ids are global).
 Order contracts are the single-device modules' (``ops/routing``,
 ``ops/hamming_scan``): ids and scores are int32 (pads INT32_MAX on the way
 to a merge, -1 after it), every (score, id) ranking runs on one int64 key.
-``approx=True`` selects each shard's top-L with ``ops/approx_topk`` (the
-TPU's ``approx_max_k``, over the shard's own rows); the merge stays exact and
-the default is the exact top-L.
+``approx=True``, the default as in the JAX package, selects each shard's
+top-L with ``ops/approx_topk`` (the TPU's ``approx_max_k``, over the shard's
+own rows); the merge stays exact, and ``approx=False`` is the exact top-L.
 """
 
 from __future__ import annotations
@@ -79,10 +78,12 @@ _UNPACK_CHUNK = 65_536        # rows unpacked at a time while building
 class Mesh:
     """``n_shards`` row ranges of one corpus over ``slots`` (torch devices,
     in order; repeats allowed), ``n_shards // len(slots)`` consecutive
-    shards on each."""
+    shards on each; ``axis`` names the shard axis, as the JAX package's
+    mesh names its one axis."""
 
     n_shards: int
     slots: tuple
+    axis: str = "shard"
 
     def __post_init__(self):
         if self.n_shards <= 0:
@@ -124,15 +125,16 @@ def _as_slot(device) -> torch.device:
     return device
 
 
-def make_mesh(n_devices: int | None = None, device=None,
-              devices=None) -> Mesh:
-    """``n_devices`` shards over device slots.
+def make_mesh(n_devices: int | None = None, axis: str = "shard", *,
+              devices=None, device=None) -> Mesh:
+    """``n_devices`` shards over device slots, the shard axis named
+    ``axis`` (the JAX package's signature).
 
     * ``devices=[...]`` names the slots (``n_devices`` defaults to one
       shard a slot);
-    * ``device=`` alone is one slot holding every shard (``n_devices``
-      defaults to the number of visible CUDA devices for a CUDA device and
-      to 1 on the CPU);
+    * ``device=d`` is ``devices=[d]``, one slot holding every shard, except
+      that ``n_devices`` defaults to the number of visible CUDA devices for
+      a CUDA device and to 1 on the CPU;
     * neither is the first ``min(n_devices, card count)`` visible CUDA
       cards, one slot each, as the JAX package's ``jax.devices()[:n]``
       (``n_devices`` defaults to the card count); without a card this
@@ -141,16 +143,16 @@ def make_mesh(n_devices: int | None = None, device=None,
     A shard count that does not split evenly over the slots raises
     ``ValueError``, and so does a CUDA device the host does not have: no
     mesh is silently stacked on fewer cards."""
-    if device is not None and devices is not None:
-        raise ValueError("name the slots by device= or by devices=, "
-                         "not both")
+    if device is not None:
+        if devices is not None:
+            raise ValueError("name the slots by device= or by devices=, "
+                             "not both")
+        devices = [device]
     if devices is not None:
         slots = tuple(_as_slot(d) for d in devices)
-    elif device is not None:
-        slots = (_as_slot(device),)
-        if n_devices is None:
-            n_devices = torch.cuda.device_count() \
-                if slots[0].type == "cuda" else 1
+        if n_devices is None and device is not None \
+                and slots[0].type == "cuda":
+            n_devices = torch.cuda.device_count()
     else:
         resolve_device(None)
         cards = torch.cuda.device_count()
@@ -158,18 +160,20 @@ def make_mesh(n_devices: int | None = None, device=None,
             n_devices = cards
         slots = tuple(torch.device("cuda", i)
                       for i in range(min(max(n_devices, 1), cards)))
-    return Mesh(int(len(slots) if n_devices is None else n_devices), slots)
+    return Mesh(int(len(slots) if n_devices is None else n_devices), slots,
+                axis)
 
 
-def resolve_scan_layout(mode, device_rows: int, bits_per_row: int,
+def resolve_scan_layout(mode, shard_rows: int, bits_per_row: int,
                         device=None):
     """Map a scan-layout request to a concrete ``keep_bits`` value.
 
     ``mode``: False (no scan state), True/"off" (unpacked int8 bit matrix),
     "packed"/"on" (int32 words, 8× fewer resident bytes, per-chunk unpack
-    inside the scan), or "auto" (pack only when the unpacked matrix of the
-    ``device_rows`` rows that share ``device`` would not fit 60% of its free
-    memory; 4 GiB on the CPU, which reports no memory stats).
+    inside the scan), or "auto" (pack only when the unpacked matrix of
+    ``shard_rows`` rows would not fit 60% of ``device``'s free memory; 4 GiB
+    on the CPU, which reports no memory stats).  Where several shards share
+    ``device``, the caller passes the rows of all of them.
     """
     if mode in (False, None):
         return False
@@ -181,25 +185,12 @@ def resolve_scan_layout(mode, device_rows: int, bits_per_row: int,
         raise ValueError(f"unknown scan layout {mode!r}")
     from ..utils.devmem import free_memory_budget
     budget = free_memory_budget(6, 10, fallback=4 << 30, device=device)
-    return "packed" if device_rows * bits_per_row > budget else True
-
-
-def _per_slot(arr) -> list:
-    """The per-slot parts of a resident array or table: the value itself on
-    a one-slot mesh, the tuple's items otherwise."""
-    if isinstance(arr, (torch.Tensor, PartitionTable)):
-        return [arr]
-    return list(arr)
-
-
-def _join(parts: list):
-    """Per-slot parts → the attribute's value (see :func:`_per_slot`)."""
-    return parts[0] if len(parts) == 1 else tuple(parts)
+    return "packed" if shard_rows * bits_per_row > budget else True
 
 
 def _assemble_dim1(arr) -> np.ndarray:
-    """[Q, k*n] per-shard blocks side by side → host numpy; per-slot parts
-    are concatenated along dim 1 in slot order."""
+    """[Q, k*n] per-shard blocks side by side → host numpy; a list of
+    per-slot parts is concatenated along dim 1 in slot order."""
     if isinstance(arr, np.ndarray):
         return arr
     if isinstance(arr, torch.Tensor):
@@ -255,11 +246,11 @@ def _merge_device(ids_blocks: list, sc_blocks: list, limit: int,
 class _Dispatched:
     """A dispatched route: device→host copies in flight (pinned,
     non-blocking, one event per source device), waited for by :meth:`get`.
-    With ``host_limit`` set the copies are the per-slot blocks and
-    :meth:`get` merges them on the host."""
+    ``ids`` and ``sc`` are lists of tensors: the merged result, or with
+    ``host_limit`` set the per-slot blocks, which :meth:`get` merges on the
+    host."""
 
-    def __init__(self, ids, sc, host_limit: int | None = None):
-        ids, sc = _per_slot(ids), _per_slot(sc)
+    def __init__(self, ids: list, sc: list, host_limit: int | None = None):
         self._n = len(ids)
         self._copy = _HostCopy(ids + sc)
         self._host_limit = host_limit
@@ -288,7 +279,8 @@ class ShardedIndex:
         # (ops/partition.build_partitions(wide=); runtime.wide_keys)
         self.wide_keys = wide_keys
         self.n_devices = mesh.n_shards
-        # each resident array: one tensor per slot (see the module notes)
+        # each resident array: a list, one tensor per slot (see the module
+        # notes)
         self.table = None          # PartitionTable, fields [n/slot, G, ...]
         self.base = None           # f32 [rows/slot, d]
         self.point_codes = None    # int32 [rows/slot, G, W]
@@ -321,28 +313,28 @@ class ShardedIndex:
         slot's tensor."""
         spp = self.mesh.shards_per_slot
         lo = (s % spp) * self.shard_rows
-        return _per_slot(arr)[s // spp][lo:lo + self.shard_rows]
+        return arr[s // spp][lo:lo + self.shard_rows]
 
     def _shard_table(self, table, s: int) -> PartitionTable:
         spp = self.mesh.shards_per_slot
         return PartitionTable(*(None if f is None else f[s % spp]
-                                for f in _per_slot(table)[s // spp]))
+                                for f in table[s // spp]))
 
-    # a resident array as its per-slot tensors, in shard order (the JAX
-    # package's per-device arrays)
-    _per_device = staticmethod(_per_slot)
+    def _per_device(self, arr) -> list:
+        """A resident array as its per-slot tensors, in shard order (the
+        JAX package's per-device arrays)."""
+        return list(arr)
 
     def _gather_host(self, arr) -> np.ndarray:
         """A resident array on the host: each slot's tensor copied on its
         own and the copies concatenated in shard order."""
-        return np.concatenate([p.cpu().numpy() for p in _per_slot(arr)])
+        return np.concatenate([p.cpu().numpy() for p in arr])
 
     def _init_tombs(self) -> None:
         """Fresh all-false tombstone mask (one bool per padded row) on every
         slot.  Deletions are a runtime input to every query step."""
-        self.tombs = _join([torch.zeros(self._slot_rows, dtype=torch.bool,
-                                        device=dev)
-                            for dev in self.mesh.slots])
+        self.tombs = [torch.zeros(self._slot_rows, dtype=torch.bool,
+                                  device=dev) for dev in self.mesh.slots]
 
     def _set_tombstones(self, ids, value: bool) -> None:
         """Set/clear tombstone bits for global row ids, in place on the
@@ -356,11 +348,11 @@ class ShardedIndex:
             raise ValueError("tombstone ids out of range")
         span = self._slot_rows
         slot_of = ids // span
-        parts = _per_slot(self.tombs)
         for i in np.unique(slot_of):
             i = int(i)
             local = torch.from_numpy(ids[slot_of == i] - i * span)
-            parts[i].index_fill_(0, local.to(parts[i].device), value)
+            self.tombs[i].index_fill_(0, local.to(self.tombs[i].device),
+                                      value)
 
     def mark_deleted(self, ids) -> None:
         """Tombstone global row ids across the shards — the sharded
@@ -391,7 +383,7 @@ class ShardedIndex:
             tables.append(PartitionTable(*(
                 None if fs[0] is None else torch.stack(fs)
                 for fs in zip(*per_shard))))
-        self.table = _join(tables)
+        self.table = tables
 
     def build(self, base: np.ndarray, keep_base: bool = True,
               keep_codes: bool = False, keep_bits: bool = False,
@@ -440,8 +432,8 @@ class ShardedIndex:
             codes_parts.append(codes)
         self._build_tables(codes_parts)
         self._init_tombs()
-        self.point_codes = _join(codes_parts) if keep_codes else None
-        self.base = _join(base_parts) if keep_base else None
+        self.point_codes = codes_parts if keep_codes else None
+        self.base = base_parts if keep_base else None
         self._set_scan_arrays(codes_parts, keep_bits)
 
     def build_stream(self, chunks, n_total: int, keep_codes: bool = False,
@@ -494,7 +486,7 @@ class ShardedIndex:
         self._build_tables(codes_parts)
         self._init_tombs()
         self.base = None
-        self.point_codes = _join(codes_parts) if keep_codes else None
+        self.point_codes = codes_parts if keep_codes else None
         self._set_scan_arrays(codes_parts, keep_bits)
         return pos
 
@@ -508,10 +500,10 @@ class ShardedIndex:
         self.bits = self.words = self.popc = None
         if not keep_bits:
             return
-        self.popc = _join([hamming_scan._popcounts(c, _UNPACK_CHUNK)
-                           for c in codes_parts])
+        self.popc = [hamming_scan._popcounts(c, _UNPACK_CHUNK)
+                     for c in codes_parts]
         if keep_bits == "packed":
-            self.words = _join(codes_parts)
+            self.words = codes_parts
             return
         cb = self.bank.code_bits
         bits_parts = []
@@ -523,7 +515,7 @@ class ShardedIndex:
                     hamming_scan.unpack_bits_device(
                         codes[lo:lo + _UNPACK_CHUNK], cb)
             bits_parts.append(bits)
-        self.bits = _join(bits_parts)
+        self.bits = bits_parts
 
     # -- checkpoint / restore ----------------------------------------------------
 
@@ -605,7 +597,7 @@ class ShardedIndex:
         del codes_np
         idx._build_tables(codes_parts)
         idx._init_tombs()
-        idx.point_codes = _join(codes_parts) if keep_codes else None
+        idx.point_codes = codes_parts if keep_codes else None
         idx._set_scan_arrays(codes_parts, keep_bits)
         return idx
 
@@ -637,8 +629,8 @@ class ShardedIndex:
                 "live) — rebuild with capacity headroom")
         cb = self.bank.code_bits
         span = self._slot_rows
-        mats = _per_slot(self.words if packed else self.bits)
-        popcs = _per_slot(self.popc)
+        mats = self.words if packed else self.bits
+        popcs = self.popc
         pos, o = self.n, 0
         while o < b:
             s = (pos + o) // rows
@@ -812,8 +804,7 @@ class ShardedIndex:
         dead = (_DEAD, -1)) over the shards, each on its slot's device, and
         merge: global ids, fine scores (rank + the query's popcount),
         INT32_MAX pads.  ``merge="host"`` returns each slot's blocks side by
-        side (one tensor a slot, see :func:`_join`) for
-        :func:`host_merge_topl`."""
+        side (a list with one tensor a slot) for :func:`host_merge_topl`."""
         rows = self.shard_rows
         ids_blocks, sc_blocks = [], []
         for s in range(self.n_devices):
@@ -828,8 +819,8 @@ class ShardedIndex:
             spp = self.mesh.shards_per_slot
 
             def per_slot(blocks):
-                return _join([torch.cat(blocks[lo:lo + spp], dim=1)
-                              for lo in range(0, self.n_devices, spp)])
+                return [torch.cat(blocks[lo:lo + spp], dim=1)
+                        for lo in range(0, self.n_devices, spp)]
 
             return per_slot(ids_blocks), per_slot(sc_blocks)
         return _merge_device(ids_blocks, sc_blocks, limit, self.device)
@@ -849,7 +840,7 @@ class ShardedIndex:
         return qbits, qbits.to(torch.int32).sum(dim=1, dtype=torch.int32)
 
     def scan_route_step_fn(self, limit: int, probe_shards: int | None = None,
-                           approx: bool = False, merge: str = "ici"):
+                           approx: bool = True, merge: str = "ici"):
         """Hamming scan over the shards: per-shard int8 bit product + local
         top-L on the shard's device, then the exact merge by fine score
         (global top-L ⊆ union of per-shard top-Ls): ``step(bits, popc,
@@ -887,7 +878,7 @@ class ShardedIndex:
 
     def scan_route_step_fn_packed(self, limit: int,
                                   probe_shards: int | None = None,
-                                  approx: bool = False, chunk: int = 1 << 19,
+                                  approx: bool = True, chunk: int = 1 << 19,
                                   merge: str = "ici"):
         """Packed-layout sharded scan: each shard runs the chunked
         running-top-L loop of the single-device scan
@@ -922,7 +913,7 @@ class ShardedIndex:
 
     def scan_route_dispatch(self, queries: np.ndarray, limit: int = 2048,
                             probe_shards: int | None = None,
-                            approx: bool = False) -> _Dispatched:
+                            approx: bool = True) -> _Dispatched:
         """Non-blocking stage-A dispatch: the step is queued on every
         slot's device and the result's copy to pinned host memory started;
         ``.get()`` waits for it (and, with ``merge_backend="host"``, merges
@@ -935,11 +926,12 @@ class ShardedIndex:
         step = mk(limit, probe_shards, approx, merge=self.merge_backend)
         ids, sc = step(self.words if packed else self.bits, self.popc,
                        self.tombs, self._queries(queries), self.n)
-        return _Dispatched(ids, sc, limit if self.merge_backend == "host"
-                           else None)
+        if self.merge_backend == "host":
+            return _Dispatched(ids, sc, limit)
+        return _Dispatched([ids], [sc])
 
     def scan_route(self, queries: np.ndarray, limit: int = 2048,
-                   probe_shards: int | None = None, approx: bool = False):
+                   probe_shards: int | None = None, approx: bool = True):
         """Stage A via the sharded Hamming scan (needs build(keep_bits=True)
         or the packed layout, keep_bits="packed")."""
         return self.scan_route_dispatch(queries, limit, probe_shards,
@@ -955,7 +947,8 @@ class ShardedIndex:
         args = (self.table, self.tombs, self._queries(queries))
         if rerank_limit > 0:
             args += (self.point_codes,)
-        return _Dispatched(*step(*args))
+        ids, sc = step(*args)
+        return _Dispatched([ids], [sc])
 
     def route(self, queries: np.ndarray, probes: int = 5,
               refinement_limit: int = 2048,

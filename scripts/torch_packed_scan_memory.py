@@ -5,7 +5,8 @@ CUDA device.
     python3 scripts/torch_packed_scan_memory.py [--rows 1065536] [--out f.json]
 
 Random 3,072-bit codes (24 groups x 4 words), 64 queries, L = 2,000, the
-default chunk of 524,288 rows: the shapes of ``chip_smoke.py`` phase 10.
+default chunk of 524,288 rows: the shapes of ``chip_smoke.py`` phase 10,
+with the exact top-L (``approx=False``).
 Each stage runs alone after ``reset_peak_memory_stats``; "scratch" is the
 peak above what was allocated before the stage.  Prints one line per stage
 and, last, a JSON object with every reading."""
@@ -74,7 +75,7 @@ def main() -> int:
         "rank top-L of a chunk": lambda: hs._rank_topk(part, L),
         "chunk step (product, mask, top-L, merge)":
             lambda: hs.scan_chunk_merge(qbits, bits_c, popc_c, tomb[:CHUNK],
-                                        0, 0, carry),
+                                        0, 0, carry, False),
     }
     out = {"card": card, "rows": args.rows, "chunk": CHUNK,
            "resident_mib": (state.words.numel() * 4
@@ -90,8 +91,8 @@ def main() -> int:
     del bits_c, part
     torch.cuda.empty_cache()
     mib, ms = staged(lambda: hs.scan_chunked(state, qbits, tomb, L,
-                                             anchor=100, margin=40,
-                                             code_bits=CB))
+                                             approx=False, anchor=100,
+                                             margin=40, code_bits=CB))
     out["stages"]["scan_chunked"] = {"scratch_mib": mib, "ms": ms}
     print(f"  scan_chunked over the whole state: scratch {mib:.1f} MiB, "
           f"{ms:.3f} ms", flush=True)

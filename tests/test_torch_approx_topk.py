@@ -300,7 +300,7 @@ def test_sharded_scan_route_approx_matches_jax(nd, layout):
     bank = bank_from_jax(alpha, np.asarray(jb.r), np.asarray(jb.omega), jb.m,
                          jb.lam, jb.tables, jb.divisions, jb.seed)
     j = JIndex(jmake_mesh(nd), jb)
-    t = ShardedIndex(make_mesh(nd, "cpu"), bank)
+    t = ShardedIndex(make_mesh(nd, device="cpu"), bank)
     dead = rng.choice(n, 40, replace=False)
     for idx in (j, t):
         idx.build(base, keep_base=False, keep_bits=layout)

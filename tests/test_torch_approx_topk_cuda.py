@@ -89,3 +89,69 @@ def test_scan_approx_on_the_card_is_the_binned_selection():
     assert torch.equal(res.ids.cpu(), ids)
     assert torch.equal(res.scores.cpu(), sc + qpopc[:, None])
     assert (res.ids.cpu()[:, 0] == torch.arange(q)).all()   # self first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["index", "index packed", "sharded"])
+def test_served_scan_route_launches_approx_topk(entry):
+    """The served scan route selects with the approximate top-L by default,
+    as the JAX package's did on the TPU: a scan-mode index's
+    ``route_batch`` (unpacked and packed state) launches the kernel once a
+    batch, ``ShardedIndex.scan_route`` once a shard, and each returns what
+    the same scan returns with ``approx=True``."""
+    from fspann_tpu_torch.config import (EvalConfig, PaperConfig,
+                                         RuntimeConfig, SystemConfig)
+    from fspann_tpu_torch.index.service import PartitionedIndex
+    from fspann_tpu_torch.ops import coding
+    from fspann_tpu_torch.parallel.sharded import ShardedIndex, make_mesh
+
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    n, d, limit = 40_000, 32, 100
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    queries = base[:64] + rng.normal(size=(64, d)).astype(np.float32) * 0.1
+    if entry == "sharded":
+        bank = coding.build_bank_from_sample(base[:1000], 64, 2, 8, 3, 13)
+        idx = ShardedIndex(make_mesh(4, device=dev), bank, block_size=128)
+        idx.build(base, keep_base=False, keep_bits=True)
+        assert at.reduction_output_size(idx.shard_rows, limit)[1] > 0
+        before = at.partial_reduce.launches
+        got = idx.scan_route(queries, limit=limit)
+        assert at.partial_reduce.launches == before + 4
+        want = idx.scan_route(queries, limit=limit, approx=True)
+        exact = idx.scan_route(queries, limit=limit, approx=False)
+    else:
+        cfg = SystemConfig(
+            paper=PaperConfig(m=64, lam=2, divisions=3, tables=8, seed=13),
+            runtime=RuntimeConfig(
+                refinement_limit=limit, max_global_candidates=limit,
+                block_size=128, routing_mode="scan", encode_backend="cpu",
+                scan_packed="on" if entry == "index packed" else "off",
+                scan_native="off", adaptive_decrypt_margin=40),
+            eval=EvalConfig(k_variants=(1, 10))).validate()
+        idx = PartitionedIndex(cfg, d, device=dev)
+        idx.stage(np.arange(n), base)
+        idx.finalize()
+        assert at.reduction_output_size(n, limit)[1] > 0
+        qcodes, qkeys = idx.encode_queries(queries)
+        before = at.partial_reduce.launches
+        res = idx.route_batch(qcodes, qkeys)
+        assert at.partial_reduce.launches == before + 1
+        cb, rt = cfg.paper.code_bits, cfg.runtime
+        qbits = torch.from_numpy(ths.unpack_bits_numpy(qcodes, cb)).to(dev)
+        kw = dict(anchor=rt.adaptive_decrypt_anchor,
+                  margin=rt.adaptive_decrypt_margin,
+                  floor=rt.adaptive_decrypt_floor, code_bits=cb)
+        st, tomb = idx._scan_state, idx._tombstones_scan()
+        got = (res.ids.cpu().numpy(), res.scores.cpu().numpy())
+        want, exact = ((r.ids.cpu().numpy(), r.scores.cpu().numpy())
+                       for r in (ths.scan_chunked(st, qbits, tomb, limit,
+                                                  approx=a, **kw)
+                                 for a in (True, False)))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    # not the exact top-L everywhere, and never a better score than it
+    assert (got[1] >= exact[1]).all()
+    kept = np.mean([len(np.intersect1d(g, e)) / len(e)
+                    for g, e in zip(got[0], exact[0])])
+    assert 0.9 <= kept < 1.0, kept

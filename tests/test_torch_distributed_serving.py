@@ -102,7 +102,7 @@ class _Side:
             return jserving.DistributedEncryptedSystem(
                 cfg, str(self.root / tag), d)
         return tserving.DistributedEncryptedSystem(
-            cfg, str(self.root / tag), d, mesh=make_mesh(ND, "cpu"))
+            cfg, str(self.root / tag), d, mesh=make_mesh(ND, device="cpu"))
 
     def daemon(self, *a, **kw):
         return (JDaemon if self.jax else BackgroundReencryption)(*a, **kw)
@@ -166,7 +166,7 @@ def test_sharded_encrypted_pipeline(tmp_path, rng):
             km = JKeys(str(side.root / "ks"))
             Store = JStore
         else:
-            idx = ShardedIndex(make_mesh(ND, "cpu"), bank_from_jax(
+            idx = ShardedIndex(make_mesh(ND, device="cpu"), bank_from_jax(
                 np.asarray(jb.alpha), np.asarray(jb.r), np.asarray(jb.omega),
                 jb.m, jb.lam, jb.tables, jb.divisions, jb.seed),
                 block_size=32)
@@ -457,7 +457,7 @@ def test_mesh_checkpoint_after_live_insert(tmp_path, rng):
 
     def scenario(side):
         idx = JIndex(jmake_mesh(), jb, block_size=16) if side.jax \
-            else ShardedIndex(make_mesh(ND, "cpu"), bank, block_size=16)
+            else ShardedIndex(make_mesh(ND, device="cpu"), bank, block_size=16)
         idx.build(base[:n], keep_base=False, keep_bits=True, keep_codes=True,
                   capacity=1024)
         idx.append_scan_rows(base[n:])

@@ -254,11 +254,13 @@ def test_scan_cuda_matches_cpu(nq):
                            nq=nq)
     tomb = torch.from_numpy(rng.random(4001) < 0.05)
     q = torch.from_numpy(qbits)
+    # the exact top-L: the default selection is approximate on the card
+    # (tests/test_torch_approx_topk_cuda.py) and exact on the CPU
     for fn, kw in ((ths.scan, {}), (ths.scan_chunked, {"chunk": 1024})):
-        cpu = fn(ths.build_scan_state(codes, cb), q, tomb, 300, anchor=10,
-                 margin=40, **kw)
+        cpu = fn(ths.build_scan_state(codes, cb), q, tomb, 300, approx=False,
+                 anchor=10, margin=40, **kw)
         dev = fn(ths.build_scan_state(codes, cb, device="cuda"), q.cuda(),
-                 tomb.cuda(), 300, anchor=10, margin=40, **kw)
+                 tomb.cuda(), 300, approx=False, anchor=10, margin=40, **kw)
         for f in FIELDS:
             assert torch.equal(getattr(cpu, f), getattr(dev, f).cpu()), f
 

@@ -1,7 +1,9 @@
 """The packed scan state, ``update_rows``, the native host scan and live
 insert on a CUDA device against the same work on the CPU, at 100k rows of
 3,072-bit codes (24 groups x 128 bits).  Every field must be equal bit for
-bit.
+bit.  The scans compared across devices or layouts select the exact top-L
+(``approx=False``): the default selection is approximate on the card and
+exact on the CPU, and its blocks follow the layout's chunks.
 
 No top-level jax import: on a GPU host these run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_lifecycle_cuda.py``
@@ -16,7 +18,8 @@ from fspann_tpu_torch.ops import hamming_scan as hs
 
 FIELDS = ("ids", "scores", "n_unique", "n_raw", "n_dec")
 N, G, W, CB = 100_000, 24, 4, 128
-KW = dict(anchor=100, margin=40)
+ADAPTIVE = dict(anchor=100, margin=40)
+KW = dict(approx=False, **ADAPTIVE)
 
 
 @pytest.fixture
@@ -35,6 +38,22 @@ def _inputs(seed=11, nq=64):
         .astype(np.uint32)
     tomb = rng.random(N) < 0.01
     return codes, qcodes, tomb
+
+
+def _scan(idx, queries, approx):
+    """The scan that ``idx.route_batch`` runs on ``queries`` (flat over the
+    unpacked state, chunked over the packed one), with ``approx``
+    chosen."""
+    rt, cb = idx.cfg.runtime, idx.cfg.paper.code_bits
+    qbits = torch.from_numpy(hs.unpack_bits_numpy(
+        idx.encode_queries(queries)[0], cb)).to(idx.device)
+    kw = dict(approx=approx, anchor=rt.adaptive_decrypt_anchor,
+              margin=rt.adaptive_decrypt_margin,
+              floor=rt.adaptive_decrypt_floor)
+    st, tomb = idx._scan_state, idx._tombstones_scan()
+    if isinstance(st, hs.PackedScanState):
+        return hs.scan_chunked(st, qbits, tomb, 2000, code_bits=cb, **kw)
+    return hs.scan(st, qbits, tomb, 2000, **kw)
 
 
 def _equal(a, b, what):
@@ -91,7 +110,7 @@ def test_native_scan_matches_cuda_scan(cuda):
     qbits = torch.from_numpy(hs.unpack_bits_numpy(qcodes, CB)).to(cuda)
     want = hs.scan(hs.build_scan_state(codes, CB, device=cuda), qbits,
                    torch.from_numpy(tomb).to(cuda), 2000, **KW)
-    got = native_scan.scan_topl(codes, qcodes, tomb, 2000, **KW)
+    got = native_scan.scan_topl(codes, qcodes, tomb, 2000, **ADAPTIVE)
     _equal(got, want, "native vs CUDA")
 
 
@@ -99,7 +118,9 @@ def test_native_scan_matches_cuda_scan(cuda):
 @pytest.mark.parametrize("packed", ["off", "on"])
 def test_index_live_insert_cuda_matches_cpu(cuda, packed):
     """append_rows on a CUDA index (in place, then past capacity) routes
-    like the same index on the CPU."""
+    like the same index on the CPU: the exact scan over either state is
+    equal, and the served route on the card is its scan with the default
+    (approximate) selection."""
     from fspann_tpu_torch.config import (EvalConfig, PaperConfig,
                                          RuntimeConfig, SystemConfig)
     from fspann_tpu_torch.index.service import PartitionedIndex
@@ -131,5 +152,7 @@ def test_index_live_insert_cuda_matches_cpu(cuda, packed):
         idx.append_rows(np.arange(21_500, 23_000), extra[1500:])
         assert idx._scan_rows == 23_000 + 4096
         idx.mark_deleted([7, 20_003])
-        out.append(idx.route_batch(*idx.encode_queries(extra[::50])))
+        out.append(_scan(idx, extra[::50], approx=False))
     _equal(out[1], out[0], f"index {packed}")
+    _equal(idx.route_batch(*idx.encode_queries(extra[::50])),
+           _scan(idx, extra[::50], approx=True), f"served {packed}")

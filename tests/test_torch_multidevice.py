@@ -94,8 +94,9 @@ def _jax_state(j):
 
 
 def _assert_per_slot(t, slots):
-    """The state is one tensor per slot, on the slot's device, holding the
-    slot's shards back to back: never one tensor for the whole mesh."""
+    """The state is a list with one tensor per slot, whatever the slot
+    count, on the slot's device, holding the slot's shards back to back:
+    never one tensor for the whole mesh."""
     spp = ND // slots
     assert t.mesh.slots == (CPU,) * slots and t.mesh.shards_per_slot == spp
     for f in ("base",) + STATE:
@@ -104,13 +105,13 @@ def _assert_per_slot(t, slots):
             continue
         parts = t._per_device(arr)
         assert len(parts) == slots, f
-        assert isinstance(arr, torch.Tensor if slots == 1 else tuple), f
+        assert isinstance(arr, list) and len(arr) == slots, f
         for p, dev in zip(parts, t.mesh.slots):
             assert isinstance(p, torch.Tensor) and p.device == dev, f
             assert p.shape[0] == t.shard_rows * spp, f
         assert len({p.data_ptr() for p in parts}) == slots, f
     tables = t._per_device(t.table)
-    assert len(tables) == slots
+    assert isinstance(t.table, list) and len(tables) == slots
     assert all(tb.ids.shape[0] == spp for tb in tables)
 
 
@@ -162,7 +163,7 @@ def test_make_mesh_rules(monkeypatch):
     """``device=`` alone is one slot (today's layout), ``devices=`` names the
     slots, an uneven split raises, and no card (or a card the host does not
     have) raises instead of stacking the shards on fewer devices."""
-    one = make_mesh(8, "cpu")
+    one = make_mesh(8, device="cpu")
     assert one.slots == (CPU,) and one.n_shards == 8
     assert one.shards_per_slot == 8 and one.device == CPU
     assert make_mesh(device="cpu") == Mesh(1, (CPU,))

@@ -77,7 +77,7 @@ def _assert_slots_equal_one_slot(slots):
     """Every route over ``slots`` == the one-slot mesh on the first card."""
     base, queries, bank, dead = _inputs()
     for layout in (True, "packed"):
-        one = _build(make_mesh(ND, slots[0]), bank, base, dead, layout)
+        one = _build(make_mesh(ND, device=slots[0]), bank, base, dead, layout)
         many = _build(make_mesh(ND, devices=slots), bank, base, dead, layout)
         parts = many._per_device(many.words if layout == "packed"
                                  else many.bits)

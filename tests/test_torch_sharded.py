@@ -64,7 +64,7 @@ def _banks(sample, m=8, lam=2, tables=3, divisions=2, seed=13):
 def _pair(jb, bank, nd=None, block=32, wide=False):
     jmesh = jmake_mesh(nd)
     return (JIndex(jmesh, jb, block_size=block, wide_keys=wide),
-            ShardedIndex(make_mesh(jmesh.devices.size, "cpu"), bank,
+            ShardedIndex(make_mesh(jmesh.devices.size, device="cpu"), bank,
                          block_size=block, wide_keys=wide))
 
 
@@ -79,11 +79,12 @@ def _assert_codes_equal(jb, bank, x):
 def _assert_tables_equal(j, t):
     assert j.shard_rows == t.shard_rows and j.n == t.n
     for f in j.table._fields:
-        a, b = getattr(j.table, f), getattr(t.table, f)
+        a = getattr(j.table, f)
+        b = [getattr(tb, f) for tb in t._per_device(t.table)]
         if a is None:
-            assert b is None, f
+            assert all(p is None for p in b), f
             continue
-        a, b = j._gather_host(a), b.numpy()
+        a, b = j._gather_host(a), t._gather_host(b)
         if f == "rep_codes":
             b = b.view(np.uint32)
         assert a.shape == b.shape, f
@@ -95,7 +96,7 @@ def _assert_state_equal(j, t):
         a, b = getattr(j, f), getattr(t, f)
         assert (a is None) == (b is None), f
         if a is not None:
-            b = b.numpy()
+            b = t._gather_host(b)
             if b.dtype == np.int32 and f != "popc":
                 b = b.view(np.uint32)
             np.testing.assert_array_equal(b, j._gather_host(a), err_msg=f)
@@ -130,7 +131,8 @@ def test_dryrun_multichip_equalities():
         idx.build(base, keep_codes=True, keep_bits=True)
     _assert_tables_equal(j, t)
     _assert_state_equal(j, t)
-    np.testing.assert_array_equal(t.base.numpy(), j._gather_host(j.base))
+    np.testing.assert_array_equal(t._gather_host(t.base),
+                                  j._gather_host(j.base))
 
     jstep = jax.jit(j.query_step_fn(probes=2, refinement_limit=64, k=k))
     jids, jdist = jstep(j.table, j.base, j.tombs, jnp.asarray(queries))
@@ -174,7 +176,7 @@ def test_dryrun_multichip_equalities():
     j4, t4 = _pair(jbw, bankw, nd, block=16, wide=True)
     for idx in (j4, t4):
         idx.build(base, keep_base=False, keep_codes=True, keep_bits=False)
-    assert t4.table.min_key2 is not None
+    assert t4.table[0].min_key2 is not None
     _assert_tables_equal(j4, t4)
     wk = t4.route(queries, probes=2, refinement_limit=64)
     _assert_same(wk, j4.route(queries, probes=2, refinement_limit=64),
@@ -301,7 +303,7 @@ def test_sharded_rerank_matches_global_fine_hamming(rng):
         live_sc = [int(s) for x, s in zip(got_ids[qi], got_sc[qi]) if x >= 0]
         assert live_sc == [fine[c] for c in exp]
     with pytest.raises(RuntimeError, match="keep_codes"):
-        bare = ShardedIndex(make_mesh(2, "cpu"), bank)
+        bare = ShardedIndex(make_mesh(2, device="cpu"), bank)
         bare.build(base, keep_base=False)
         bare.route(queries, rerank_limit=10)
 
@@ -382,15 +384,15 @@ def test_mesh_live_insert_matches_full_build(rng, layout):
     live_j, live = _pair(jb, bank, block=16)
     for idx in (live_j, live):
         idx.build(base[:n0], keep_base=False, keep_bits=layout, capacity=cap)
-    state = live.words if layout == "packed" else live.bits
-    ptrs = (state.data_ptr(), live.popc.data_ptr(), tuple(state.shape))
+    state = (live.words if layout == "packed" else live.bits)[0]
+    ptrs = (state.data_ptr(), live.popc[0].data_ptr(), tuple(state.shape))
     before = live.scan_route(queries, limit=64)
     for idx in (live_j, live):
         ids = idx.append_scan_rows(base[n0:])
         np.testing.assert_array_equal(ids, np.arange(n0, n0 + n1))
         assert idx.n == n0 + n1
-    state = live.words if layout == "packed" else live.bits
-    assert (state.data_ptr(), live.popc.data_ptr(),
+    state = (live.words if layout == "packed" else live.bits)[0]
+    assert (state.data_ptr(), live.popc[0].data_ptr(),
             tuple(state.shape)) == ptrs, "the insert moved the scan state"
     _assert_state_equal(live_j, live)
     full = _pair(jb, bank, block=16)[1]
@@ -420,7 +422,7 @@ def test_mesh_checkpoint_restore_roundtrip(tmp_path, rng):
         idx.build(base, keep_base=False, keep_bits=True, keep_codes=True)
     path = str(tmp_path / "mesh_state.npz")
     one.save_state(path)
-    back = ShardedIndex.restore_state(path, make_mesh(8, "cpu"),
+    back = ShardedIndex.restore_state(path, make_mesh(8, device="cpu"),
                                       keep_codes=True, keep_bits=True)
     assert back.n == n and back.shard_rows == one.shard_rows
     _assert_tables_equal(one_j, back)
@@ -432,7 +434,7 @@ def test_mesh_checkpoint_restore_roundtrip(tmp_path, rng):
     _assert_same(back.route(queries, probes=3, refinement_limit=128), r_a)
     _assert_same(r_a, one_j.route(queries, probes=3, refinement_limit=128))
     with pytest.raises(ValueError, match="8 devices"):
-        ShardedIndex.restore_state(path, make_mesh(4, "cpu"))
+        ShardedIndex.restore_state(path, make_mesh(4, device="cpu"))
 
 
 def test_jax_checkpoint_restores_with_alpha_and_without(tmp_path, rng):
@@ -457,7 +459,7 @@ def test_jax_checkpoint_restores_with_alpha_and_without(tmp_path, rng):
     for key in jz.files:
         assert tz[key].dtype == jz[key].dtype, key
         np.testing.assert_array_equal(tz[key], jz[key], err_msg=key)
-    mesh = make_mesh(8, "cpu")
+    mesh = make_mesh(8, device="cpu")
     with_alpha = str(tmp_path / "jax_alpha.npz")
     np.savez(with_alpha, alpha=np.asarray(jb.alpha),
              **{key: jz[key] for key in jz.files})
@@ -507,7 +509,7 @@ def test_mesh_checkpoint_from_bits_only(tmp_path, rng):
     one.save_state(path)
     np.testing.assert_array_equal(np.load(path)["codes"],
                                   np.load(jpath)["codes"])
-    back = ShardedIndex.restore_state(path, make_mesh(8, "cpu"))
+    back = ShardedIndex.restore_state(path, make_mesh(8, device="cpu"))
     a = one.scan_route(queries, limit=32)
     _assert_same(back.scan_route(queries, limit=32), a)
     _assert_same(a, one_j.scan_route(queries, limit=32, approx=False))
@@ -528,10 +530,10 @@ def test_sharded_index_mark_deleted_all_paths(rng):
     dead = np.arange(0, n, 7)
     queries = base[dead[:4]].copy()
     alive = t.scan_route(queries, limit=32)
-    tombs_ptr = t.tombs.data_ptr()
+    tombs_ptr = t.tombs[0].data_ptr()
     for idx in (j, t):
         idx.mark_deleted(dead)
-    assert t.tombs.data_ptr() == tombs_ptr
+    assert t.tombs[0].data_ptr() == tombs_ptr
     _assert_state_equal(j, t)
     s = t.scan_route(queries, limit=32)
     _assert_same(s, j.scan_route(queries, limit=32, approx=False))
@@ -574,8 +576,8 @@ def test_mesh_packed_scan_matches_unpacked(rng):
     for idx in (jp, b):
         idx.build(base, keep_base=False, keep_bits="packed", capacity=n + 64)
     assert b.bits is None and b.words is not None
-    assert b.words.dtype == torch.int32
-    assert torch.equal(a.popc, b.popc)
+    assert b.words[0].dtype == torch.int32
+    assert torch.equal(a.popc[0], b.popc[0])
     _assert_state_equal(jp, b)
     ia = a.scan_route(queries, limit=48)
     _assert_same(b.scan_route(queries, limit=48), ia, "packed")
@@ -627,7 +629,7 @@ def test_host_merge_matches_ici_merge(rng, layout):
             else t.scan_route_step_fn)(L, merge="host")
     ids, sc = step(t.words if layout == "packed" else t.bits, t.popc,
                    t.tombs, torch.from_numpy(queries), t.n)
-    assert ids.shape == (q, 8 * min(L, t.shard_rows))
+    assert len(ids) == 1 and ids[0].shape == (q, 8 * min(L, t.shard_rows))
     _assert_same(tsharded.host_merge_topl(ids, sc, L), ici)
 
 
@@ -640,7 +642,7 @@ def test_mesh_wide_matches_single_chip():
     j, t = _pair(jb, bank, 4, block=16, wide=True)
     for idx in (j, t):
         idx.build(base, keep_base=False, keep_codes=True, keep_bits=False)
-    assert t.table.min_key2 is not None and t.n_devices == 4
+    assert t.table[0].min_key2 is not None and t.n_devices == 4
     _assert_tables_equal(j, t)
     got = t.route(queries, probes=3, refinement_limit=128)
     _assert_same(got, j.route(queries, probes=3, refinement_limit=128))
@@ -672,7 +674,7 @@ def test_sharded_scan_equals_single_device_scan(nd, n):
                                          bank.code_bits), qbits, tomb, L)
     want = (want.ids.numpy(), want.scores.numpy())
     for layout in (True, "packed"):
-        idx = ShardedIndex(make_mesh(nd, "cpu"), bank)
+        idx = ShardedIndex(make_mesh(nd, device="cpu"), bank)
         idx.build(base, keep_base=False, keep_bits=layout)
         assert idx.shard_rows == -(-n // nd)
         idx.mark_deleted(dead)
@@ -683,27 +685,29 @@ def test_sharded_scan_equals_single_device_scan(nd, n):
 
 
 def test_approx_raises_and_defaults_to_exact(rng):
-    """Every sharded scan entry takes ``approx=True`` (refused before the
-    port had an approximate top-L) and, on the CPU, where it selects
-    exactly, returns the default's exact route; nothing raises."""
+    """Every sharded scan entry takes ``approx=True`` (its default, as in
+    the JAX package; refused before the port had an approximate top-L)
+    and, on the CPU, where it selects exactly, returns the route of
+    ``approx=False``; nothing raises."""
     base = _grid(rng.normal(size=(256, 8)) * 3)
     _, bank = _banks(base, m=6, lam=2, tables=2, divisions=2)
     n_live = torch.tensor(256)
     for layout in (True, "packed"):
-        idx = ShardedIndex(make_mesh(2, "cpu"), bank)
+        idx = ShardedIndex(make_mesh(2, device="cpu"), bank)
         idx.build(base, keep_base=False, keep_bits=layout)
-        exact = idx.scan_route(base[:2], limit=8)
+        exact = idx.scan_route(base[:2], limit=8, approx=False)
         assert exact[0].shape == (2, 8)
         args = (idx.words if layout == "packed" else idx.bits, idx.popc,
                 idx.tombs, idx._queries(base[:2]), int(n_live))
         step = (idx.scan_route_step_fn_packed if layout == "packed"
                 else idx.scan_route_step_fn)(8, approx=True)
-        for got in (idx.scan_route(base[:2], limit=8, approx=True),
+        for got in (idx.scan_route(base[:2], limit=8),
+                    idx.scan_route(base[:2], limit=8, approx=True),
                     idx.scan_route_dispatch(base[:2], limit=8,
                                             approx=True).get(),
                     tuple(x.numpy() for x in step(*args))):
             _assert_same(got, exact, layout)
-    bare = ShardedIndex(make_mesh(2, "cpu"), bank)
+    bare = ShardedIndex(make_mesh(2, device="cpu"), bank)
     bare.build(base, keep_base=False)
     with pytest.raises(RuntimeError, match="keep_bits"):
         bare.scan_route(base[:2])
@@ -714,9 +718,9 @@ def test_approx_raises_and_defaults_to_exact(rng):
 def test_make_mesh_and_scan_layout():
     mesh = make_mesh(device="cpu")
     assert mesh.n_shards == 1 and mesh.device == torch.device("cpu")
-    assert make_mesh(5, "cpu").n_shards == 5
+    assert make_mesh(5, device="cpu").n_shards == 5
     with pytest.raises(ValueError):
-        make_mesh(0, "cpu")
+        make_mesh(0, device="cpu")
     rl = tsharded.resolve_scan_layout
     assert [rl(m, 10, 10, "cpu") for m in
             (False, None, True, "off", "packed", "on")] == \

@@ -2,7 +2,10 @@
 100k rows of 3,072-bit codes (24 groups x 128 bits): build, scan route
 (packed and unpacked, both merges, 1, 4 and 8 shards), probe route with the
 full-code re-rank (one ``code_hamming`` launch per shard) and live insert.
-Every integer output must be equal bit for bit.
+Every integer output must be equal bit for bit.  The scan routes compared
+pass ``approx=False``: the default (approximate) selection runs the
+``approx_topk`` kernel on the card and selects exactly on the CPU
+(tests/test_torch_approx_topk_cuda.py holds it to its plain twin).
 
 Both devices ENCODE here, so the inputs sit on the exact grid of
 tests/test_torch_sharded.py (vectors multiples of 1/16, ``alpha`` multiples
@@ -63,29 +66,32 @@ def test_sharded_scan_cuda_matches_cpu(cuda, nd):
     for layout in (True, "packed"):
         pair = []
         for dev in ("cpu", cuda):
-            idx = ShardedIndex(make_mesh(nd, dev), bank, block_size=128)
+            idx = ShardedIndex(make_mesh(nd, device=dev), bank, block_size=128)
             idx.build(base, keep_base=False, keep_codes=True,
                       keep_bits=layout, capacity=N + 4096)
             idx.mark_deleted(dead)
             pair.append(idx)
         host, card = pair
         state = card.words if layout == "packed" else card.bits
-        assert state.is_cuda and card.popc.is_cuda and card.tombs.is_cuda
-        assert torch.equal(host.point_codes, card.point_codes.cpu()), "codes"
-        assert torch.equal(host.popc, card.popc.cpu())
-        for f in host.table._fields:
-            a, b = getattr(host.table, f), getattr(card.table, f)
+        assert state[0].is_cuda and card.popc[0].is_cuda \
+            and card.tombs[0].is_cuda
+        assert np.array_equal(host._gather_host(host.point_codes),
+                              card._gather_host(card.point_codes)), "codes"
+        assert torch.equal(host.popc[0], card.popc[0].cpu())
+        for f in host.table[0]._fields:
+            a, b = getattr(host.table[0], f), getattr(card.table[0], f)
             assert (a is None and b is None) or torch.equal(a, b.cpu()), f
-        want = host.scan_route(queries, limit=L)
+        exact = dict(limit=L, approx=False)
+        want = host.scan_route(queries, **exact)
         for merge in ("ici", "host"):
             host.merge_backend = card.merge_backend = merge
-            _same(card.scan_route(queries, limit=L), want,
+            _same(card.scan_route(queries, **exact), want,
                   (nd, layout, merge))
-            _same(host.scan_route(queries, limit=L), want,
+            _same(host.scan_route(queries, **exact), want,
                   (nd, layout, merge, "cpu"))
         for q in (7, 1):
-            _same(card.scan_route(queries[:q], limit=L),
-                  host.scan_route(queries[:q], limit=L), (nd, layout, q))
+            _same(card.scan_route(queries[:q], **exact),
+                  host.scan_route(queries[:q], **exact), (nd, layout, q))
         if layout is True:
             before = code_hamming.launches
             got = card.route(queries, probes=4, refinement_limit=4096,
@@ -105,24 +111,26 @@ def test_append_scan_rows_keeps_storage_on_cuda(cuda, layout):
     n0 = N - 20_000
     pair = []
     for dev in ("cpu", cuda):
-        idx = ShardedIndex(make_mesh(4, dev), bank, block_size=128)
+        idx = ShardedIndex(make_mesh(4, device=dev), bank, block_size=128)
         idx.build(base[:n0], keep_base=False, keep_bits=layout, capacity=N)
         pair.append(idx)
     host, card = pair
-    state = card.words if layout == "packed" else card.bits
-    ptrs = (state.data_ptr(), card.popc.data_ptr(), card.tombs.data_ptr(),
-            tuple(state.shape))
+    state = (card.words if layout == "packed" else card.bits)[0]
+    ptrs = (state.data_ptr(), card.popc[0].data_ptr(),
+            card.tombs[0].data_ptr(), tuple(state.shape))
     for lo in range(n0, N, 5000):       # 4 inserts, crossing a shard edge
         for idx in pair:
             ids = idx.append_scan_rows(base[lo:lo + 5000])
             np.testing.assert_array_equal(ids, np.arange(lo, lo + 5000))
     card.mark_deleted([3, N - 1])
     host.mark_deleted([3, N - 1])
-    state = card.words if layout == "packed" else card.bits
-    assert (state.data_ptr(), card.popc.data_ptr(), card.tombs.data_ptr(),
-            tuple(state.shape)) == ptrs, "the insert moved the scan state"
-    got = card.scan_route(base[N - 64:N], limit=100)
-    _same(got, host.scan_route(base[N - 64:N], limit=100), "after insert")
+    state = (card.words if layout == "packed" else card.bits)[0]
+    assert (state.data_ptr(), card.popc[0].data_ptr(),
+            card.tombs[0].data_ptr(), tuple(state.shape)) == ptrs, \
+        "the insert moved the scan state"
+    got = card.scan_route(base[N - 64:N], limit=100, approx=False)
+    _same(got, host.scan_route(base[N - 64:N], limit=100, approx=False),
+          "after insert")
     own = np.arange(N - 64, N)
     assert (got[0][:-1, 0] == own[:-1]).all()       # self search
     assert N - 1 not in got[0]
