@@ -103,13 +103,17 @@ Phases (any failure raises and exits non-zero):
      top-L kernel (``csrc/approx_topk.cu``, the TPU's ``ApproxTopK`` at
      recall_target 0.98) against its plain torch twin, bit for bit, in its
      bins and its selection, with 1% tombstones and Q in {64, 7, 1}, over
-     the flat scan at 1M (r 3), the chunked scan's full chunk and tail (r
-     2), one shard of 4 (r 1) and the re-rank's width (r 0, the exact
-     top-L); timed at [64, 1M] beside the plain twin, the library's bin
-     minimum (``amin``), the exact top-L and its bound; then
-     ``scan(approx=True)`` and ``scan_chunked(approx=True)`` over the 16
-     batches: each keeps a mean share >= 0.98 of the exact top-2,000, and
-     the flat one equals phase 5's served route.
+     the flat scan at 1M (r 3), the chunked scan's full chunk (r 2) and
+     its 475,712-row tail, binned as the JAX package's whole 2^19-row tail
+     block (r 2, offset 48,576), one shard of 4 (r 1) and the re-rank's
+     width (r 0, the exact top-L); timed at [64, 1M] beside the plain twin,
+     the library's bin minimum (``amin``), the exact top-L and its bound;
+     then ``scan(approx=True)``, ``scan_chunked(approx=True)`` and the
+     packed ``scan_chunked(approx=True)`` at chunk 2^19 over the 16 batches:
+     each keeps a mean share >= 0.98 of the exact top-2,000, the flat one
+     equals phase 5's served route, and the chunked ones equal a plain
+     torch statement of the JAX package's loop (whole chunk-row blocks, the
+     tail from n - chunk with the rows already scanned dead).
  17. right after phase 14: the sharded index and the facade at phase 13's
      point with the 4 shards spread over min(4, cards) cards, one slot a
      card (2 cards on a host of 3), or over 4 slots on cuda:0 on a host of
@@ -124,8 +128,10 @@ Phases (any failure raises and exits non-zero):
      path's inputs.  Printed: the cards, peer access between them, device
      ms per batch (CUDA events on every card), peak memory per card.
 Phase 5 also checks the bank against the JAX package's for the same seed
-(``JAX_BANK_FINGERPRINT``) and serves a second pass with the 24-bit id
-transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
+(``JAX_BANK_FINGERPRINT``) and the sample statistics of the bank its build
+draws against the JAX package's from the same sample
+(``JAX_SAMPLE_BANK_FINGERPRINT``), and serves a second pass with the 24-bit
+id transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
 Each served path (phases 5, 8, 10, 12, 13, 14, 16 and 17) runs with the kernels'
 launch counts set to 0 just before it and read just after.  The last two
 lines of standard output are the kernels' JSON record and the device JSON
@@ -162,6 +168,14 @@ INT32_MAX = 2 ** 31 - 1
 # _alpha_from_seed / _r_unit_from_seed, JAX 0.9.0 on the CPU): the port's
 # threefry bank must reproduce them bit for bit
 JAX_BANK_FINGERPRINT = "21921a2cc979"
+# sha1 (first 12 hex digits) of r and omega [24, 64] of the bank the JAX
+# package builds from phase 5's sample (the first 100,000 rows of the seed
+# 42 corpus, f16 round trip; its coding module's build_bank_from_sample,
+# JAX 0.9.0 on the CPU), whose corpus fingerprint is CORPUS_FINGERPRINT: the
+# port's bank from the same sample must equal it bit for bit, whatever BLAS
+# the host has
+JAX_SAMPLE_BANK_FINGERPRINT = "887f80dc9c0b"
+CORPUS_FINGERPRINT = "c8e24fc51ea0"
 
 
 def log(msg: str) -> None:
@@ -377,6 +391,7 @@ def reset_launches() -> None:
     from fspann_tpu_torch.ops.l2_topk import l2_topk
 
     l2_topk.launches = code_hamming.launches = partial_reduce.launches = 0
+    partial_reduce.tail_launches = 0
 
 
 def read_launches() -> dict:
@@ -385,7 +400,8 @@ def read_launches() -> dict:
     from fspann_tpu_torch.ops.l2_topk import l2_topk
 
     return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches,
-            "approx_topk": partial_reduce.launches}
+            "approx_topk": partial_reduce.launches,
+            "approx_topk_tail": partial_reduce.tail_launches}
 
 
 def scan_call(idx, queries, approx: bool = True):
@@ -423,13 +439,14 @@ def scan_launches(rows: int, limit: int, chunk: int | None = None) -> int:
     from fspann_tpu_torch.ops.approx_topk import reduction_output_size
 
     if chunk is None or rows <= chunk:
-        widths = [rows]
-    else:
-        k = min(limit, chunk)
-        widths = [min(chunk, rows - s) if rows - s >= k else chunk
-                  for s in range(0, rows, chunk)]
-    return sum(reduction_output_size(c, min(limit, c))[1] > 0
-               for c in widths)
+        return int(reduction_output_size(rows, min(limit, rows))[1] > 0)
+    k = min(limit, chunk)
+    w, r = reduction_output_size(chunk, k)
+    full, left = divmod(rows, chunk)
+    # the tail bins as the JAX package's whole chunk-row block past W rows
+    # (and re-read whole under k rows); between, each of its live rows sits
+    # alone in a bin, and the selection is the exact top-L
+    return (r > 0) * (full + (left > w or 0 < left < k))
 
 
 def slice_cfg(**runtime):
@@ -508,9 +525,32 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     t_final = time.perf_counter() - t0
     st = sys_.index._scan_state
     bank = sys_.index.bank
-    log(f"  fingerprints: corpus {fingerprint(base, queries)}, bank "
-        f"{fingerprint(bank.alpha, bank.r, bank.omega)}, popcounts "
+    corpus, stats = fingerprint(base, queries), fingerprint(bank.r, bank.omega)
+    log(f"  fingerprints: corpus {corpus}, bank "
+        f"{fingerprint(bank.alpha, bank.r, bank.omega)} (r and omega "
+        f"{stats}, the JAX package's from this sample "
+        f"{JAX_SAMPLE_BANK_FINGERPRINT}), popcounts "
         f"{fingerprint(st.popc.cpu().numpy())}")
+    require(corpus == CORPUS_FINGERPRINT, f"the corpus differs from the one "
+            f"the sample bank's fingerprint was taken on: {corpus}")
+    require(stats == JAX_SAMPLE_BANK_FINGERPRINT, "the bank drawn from the "
+            "sample differs from the JAX package's")
+    sample = f16_round_trip(base[:100_000])      # the first batch, stored
+    t0 = time.perf_counter()
+    again = coding.build_bank_from_sample(sample, pp.m, pp.lam, pp.tables,
+                                          pp.divisions, pp.seed,
+                                          pp.omega_divisor)
+    t_bank = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coding._omega_from_sample(sample, bank.alpha, coding._r_unit_from_seed(
+        pp.seed, *shape[:2]), pp.omega_divisor)
+    t_stats = time.perf_counter() - t0
+    require(fingerprint(again.r, again.omega) == stats, "the bank rebuilt "
+            "from the first 100,000 rows differs from the build's")
+    log(f"  the bank rebuilt on the host from the build's sample (the first "
+        f"100,000 rows): {t_bank:.2f} s, of which the sample statistics "
+        f"(float64 screen, then XLA's float32 order for the candidates) "
+        f"{t_stats:.2f} s")
     require(st.bits.device.type == torch.device(dev).type, st.bits.device)
     fs = {k: round(v, 2) for k, v in sys_.index.finalize_sec.items()}
     log(f"  build {t_insert + t_final:.1f} s (insert {t_insert:.1f} + "
@@ -640,6 +680,41 @@ def retained_share(got_ids: np.ndarray, want_ids: np.ndarray) -> np.ndarray:
     return out
 
 
+def jax_chunk_loop_plain(state, qbits, dead, limit: int, chunk: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``scan_chunked(approx=True)`` in plain torch, the
+    selection binned as ``ops/approx_topk`` defines it: whole ``chunk``-row
+    blocks, the tail from ``n - chunk`` with the rows already scanned dead,
+    each block's bins over its whole width (``partial_reduce_plain``), a
+    (score, id) merge.  Returns (ids, scores) as ``scan_chunked`` does."""
+    from fspann_tpu_torch.ops import approx_topk as at
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    n = state.popc.shape[0]
+    k = min(limit, chunk, n)
+    w, r = at.reduction_output_size(chunk, k)
+    q, dev = qbits.shape[0], qbits.device
+    sc = torch.full((q, k), at._DEAD, dtype=torch.int32, device=dev)
+    ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    for start in range(0, n, chunk):
+        lo = min(start, n - chunk)
+        rows = torch.arange(lo, lo + chunk, device=dev)
+        bins = at.partial_reduce_plain(
+            hs._bit_dots(qbits, state.bits[lo:lo + chunk]), w, r, lo,
+            popc=state.popc[lo:lo + chunk], scale=-2,
+            dead=dead[lo:lo + chunk] | (rows < start))
+        bsc, bid = at._smallest(bins, k)
+        msc = torch.cat([sc, bsc], dim=1)
+        mid = torch.cat([ids, torch.where(bsc < at._DEAD, bid, -1)], dim=1)
+        sel = torch.topk((msc.to(torch.int64) << 32) + mid, k, dim=1,
+                         largest=False, sorted=True).indices
+        sc, ids = msc.gather(1, sel), mid.gather(1, sel)
+    live = sc < at._DEAD
+    qpopc = qbits.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    return (torch.where(live, ids, -1),
+            torch.where(live, sc + qpopc[:, None], INT32_MAX))
+
+
 def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
     """Phase 16, right after phase 5 on its codes, bank and queries: the
     approximate top-L (``ops/approx_topk``) kernel against its plain twin,
@@ -661,39 +736,44 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
     n = state.popc.shape[0]
     tomb = torch.from_numpy(np.random.default_rng(16).random(n) < 0.01) \
         .to(dev)
-    # (what, first row, rows): the flat scan at 1M (r 3), the chunked scan's
-    # full chunk and its tail (r 2), one shard of 4 at phase 13's capacity
-    # (r 1), and the probe point's re-rank width, where nothing is reduced
-    shapes = [("flat scan", 0, n), ("full chunk", 0, 1 << 19),
-              ("chunk tail", 1 << 19, n - (1 << 19)),
-              ("shard of 4", 0, SHARD_CAP // 4), ("no reduction", 0, 56_000)]
+    # (what, first row, rows, block width): the flat scan at 1M (r 3), the
+    # chunked scan's full chunk (r 2) and its tail, binned as the JAX
+    # package's whole 2^19-row tail block (r 2, offset 2^19 - rows), one
+    # shard of 4 at phase 13's capacity (r 1), and the probe point's
+    # re-rank width, where nothing is reduced
+    shapes = [("flat scan", 0, n, n), ("full chunk", 0, 1 << 19, 1 << 19),
+              ("chunk tail", 1 << 19, n - (1 << 19), 1 << 19),
+              ("shard of 4", 0, SHARD_CAP // 4, SHARD_CAP // 4),
+              ("no reduction", 0, 56_000, 56_000)]
     checked = []
     err = 0
-    for what, lo, c in shapes:
-        w, r = at.reduction_output_size(c, APPROX_L)
+    for what, lo, c, width in shapes:
+        w, r = at.reduction_output_size(width, APPROX_L)
+        off = width - c
         for q in (64, 7, 1):
             dots = hs._bit_dots(qbits[:q], state.bits[lo:lo + c])
             epi = dict(popc=state.popc[lo:lo + c], scale=-2,
                        dead=tomb[lo:lo + c])
-            sel = at.approx_rank_topk(dots, APPROX_L, lo, **epi)
+            sel = at.approx_rank_topk(dots, APPROX_L, lo, width=width, **epi)
             if r == 0:
                 part = (dots * -2 + epi["popc"]).masked_fill(
                     epi["dead"][None, :], at._DEAD)
                 plain = hs._rank_topk(part, APPROX_L, lo)
             else:
-                got = at.partial_reduce(dots, w, r, lo, **epi)
-                want = at.partial_reduce_plain(dots, w, r, lo, **epi)
+                got = at.partial_reduce(dots, w, r, lo, off=off, **epi)
+                want = at.partial_reduce_plain(dots, w, r, lo, off=off, **epi)
                 require(torch.equal(got, want), (what, q, "bins"))
                 plain = at._smallest(want, APPROX_L)
                 if q == 7:       # the re-rank's epilogue: the values as given
-                    require(torch.equal(at.partial_reduce(dots, w, r, lo),
-                                        at.partial_reduce_plain(dots, w, r,
-                                                                lo)),
-                            (what, q, "bins without epilogue"))
+                    require(torch.equal(
+                        at.partial_reduce(dots, w, r, lo, off=off),
+                        at.partial_reduce_plain(dots, w, r, lo, off=off)),
+                        (what, q, "bins without epilogue"))
             for a, b in zip(sel, plain):
                 require(torch.equal(a, b), (what, q, "selection"))
             err = max(err, int((sel[0] - plain[0]).abs().max()))
-        checked.append(f"{what} [Q, {c}] W={w} r={r}")
+        checked.append(f"{what} [Q, {c}] W={w} r={r}"
+                       + (f" offset {off}" if off else ""))
     log(f"phase 16 approx_topk (lax.approx_max_k, recall_target 0.98) at "
         f"L={APPROX_L} on phase 5's codes, 1% tombstones, Q in (64, 7, 1): "
         f"kernel == plain twin bit for bit (bins and selection) at "
@@ -729,16 +809,41 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
         f"the same rank values ({APPROX_L} of {n}, one int64 key) "
         f"{ms['exact']:.4f} ms")
 
-    # the path: the scan entry points with approx=True over the 16 batches
+    # the chunked scan's tail with its offset, Q = 64, in turns
+    lo = 1 << 19
+    w_t, r_t = at.reduction_output_size(lo, APPROX_L)
+    dots = hs._bit_dots(qbits[:64], state.bits[lo:])
+    epi = dict(popc=state.popc[lo:], scale=-2, dead=tomb[lo:],
+               off=2 * lo - n)
+    tail = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = at.partial_reduce if name == "kernel" else at.partial_reduce_plain
+        tail[name].append(time_ms(lambda: fn(dots, w_t, r_t, lo, **epi),
+                                  reps=5))
+    tail_ms = {name: sum(t) / len(t) for name, t in tail.items()}
+    tail_bound, tail_by = approx_bound_ms(64, n - lo, w_t)
+    del dots
+    log(f"  chunk tail [64, {n - lo}] at offset {2 * lo - n} -> W={w_t} bins "
+        f"(r={r_t}), the JAX package's 2^19-row block: kernel "
+        f"{tail_ms['kernel']:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in tail['kernel'])}), plain twin "
+        f"{tail_ms['plain']:.3f} ms; bound {tail_bound:.4f} ms ({tail_by}), "
+        f"kernel at {tail_bound / tail_ms['kernel']:.1%} of it")
+
+    # the path: the scan entry points with approx=True over the 16 batches,
+    # the chunked scan on the bits and on the packed words
     no_tomb = torch.zeros(n, dtype=torch.bool, device=dev)
+    packed = hs.build_scan_state_packed(p5["codes"], cb, device=dev)
     reset_launches()                   # counts from here are the path's
-    runs = {"flat": [], "chunked": [], "exact": []}
+    runs = {"flat": [], "chunked": [], "packed": [], "exact": []}
     for s in range(0, Q_SLICE, 64):
         qb = qbits[s:s + 64]
         runs["flat"].append(hs.scan(state, qb, no_tomb, APPROX_L,
                                     approx=True))
         runs["chunked"].append(hs.scan_chunked(state, qb, no_tomb, APPROX_L,
                                                approx=True))
+        runs["packed"].append(hs.scan_chunked(packed, qb, no_tomb, APPROX_L,
+                                              approx=True, code_bits=cb))
         runs["exact"].append(hs.scan(state, qb, no_tomb, APPROX_L,
                                      approx=False))
     counts = read_launches()
@@ -747,9 +852,20 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
     require_same(got["exact"], p5["route"], "exact scan vs phase 5's route")
     require_same(got["flat"], p5["served_route"],
                  "scan(approx=True) vs phase 5's served route")
-    # one kernel launch a flat batch, two a chunked one (full chunk + tail)
-    require(counts["approx_topk"] == 3 * Q_SLICE // 64,
+    # one kernel launch a flat batch, two a chunked one (full chunk + tail,
+    # the tail's with its offset), bits or words
+    require(counts["approx_topk"] == 5 * Q_SLICE // 64
+            and counts["approx_topk_tail"] == 2 * Q_SLICE // 64,
             f"approx_topk launches {counts}")
+    require_same(got["packed"], got["chunked"], "packed vs unpacked "
+                 "scan_chunked(approx=True)")
+    jax_loop = [jax_chunk_loop_plain(state, qbits[s:s + 64], no_tomb,
+                                     APPROX_L, 1 << 19)
+                for s in range(0, Q_SLICE, 64)]
+    require_same(tuple(np.concatenate([x[i].cpu().numpy() for x in jax_loop])
+                       for i in (0, 1)), got["chunked"],
+                 "scan_chunked(approx=True) vs the plain statement of the "
+                 "JAX package's chunk loop")
     shares = {}
     for k in ("flat", "chunked"):
         ids, sc = got[k]
@@ -771,22 +887,28 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
         ("chunked exact", lambda: hs.scan_chunked(state, qb, no_tomb,
                                                   APPROX_L, approx=False)))}
     log(f"  scan(approx=True) over the {Q_SLICE // 64} batches == phase 5's "
-        f"served route, scan(approx=False) == its exact route; share of the "
-        f"exact top-{APPROX_L} kept: "
+        f"served route, scan(approx=False) == its exact route, "
+        f"scan_chunked(approx=True) at chunk 2^19 on the bits == on the "
+        f"packed words == the plain statement of the JAX package's loop "
+        f"(the {n - (1 << 19)}-row tail binned as its 2^19-row block); "
+        f"share of the exact top-{APPROX_L} kept: "
         f"flat mean {shares['flat'].mean():.6f} min "
         f"{shares['flat'].min():.6f}, chunked (2^19 rows) mean "
         f"{shares['chunked'].mean():.6f} min {shares['chunked'].min():.6f} "
         f"(gate: mean >= {APPROX_SHARE_GATE}); kernel launches on this path "
         f"{counts}; one batch of 64 (CUDA events): " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in scan_ms.items()))
-    del state, qbits, tomb, no_tomb, runs
+    del state, packed, qbits, tomb, no_tomb, runs, jax_loop
     torch.cuda.empty_cache()
     return counts, {"max_abs_err": float(err), "ms": ms["kernel"],
                     "plain_ms": ms["plain"], "library_ms": ms["library"],
                     "bound_ms": bound, "bound_by": by,
                     "select_ms": ms["select"], "exact_ms": ms["exact"],
                     "share_mean": float(shares["flat"].mean()),
-                    "share_min": float(shares["flat"].min())}
+                    "share_min": float(shares["flat"].min()),
+                    "tail_ms": tail_ms["kernel"],
+                    "tail_plain_ms": tail_ms["plain"],
+                    "tail_bound_ms": tail_bound}
 
 
 def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
@@ -2316,6 +2438,7 @@ def main() -> int:
         "source": "fspann_tpu_torch/csrc/approx_topk.cu",
         "replaces": "fspann_tpu/ops/hamming_scan.py:212",
         "launches": sum(c["approx_topk"] for c in paths),
+        "tail_launches": sum(c["approx_topk_tail"] for c in paths),
         **approx_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

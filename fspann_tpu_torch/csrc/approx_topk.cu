@@ -6,16 +6,20 @@
 // :212 (scan) and :252 (scan_chunk_merge), ops/routing.py:297
 // (route_rerank), parallel/sharded.py:688 (scan_route_step_fn).
 //
-// For each row q and bin b < W (W a multiple of 128, W * steps >= C):
+// For each row q and bin b < W (W a multiple of 128, W * steps >= C + off):
 //
-//   out[q, b] = min over i = b, b + W, ..., i < C of
+//   out[q, b] = min over i with (i + off) mod W == b, 0 <= i < C, of
 //               (value(q, i) << 32) | (row0 + i)          (int64)
 //   value(q, i) = scale * x[q, i] + popc[i]   (popc may be absent: 0)
 //   value(q, i) = 1 << 30                     where dead[i] (may be absent)
 //
-// and INT64_MAX for a bin that holds no element.  ops/approx_topk.py takes
-// the exact top-k of the W minima (torch.topk) and holds this kernel to its
-// plain twin, partial_reduce_plain.
+// and INT64_MAX for a bin that holds no element.  The offset places the C
+// columns at the end of a block of C + off whose first off columns are dead:
+// the chunked scan's tail, which the JAX package scans as a whole chunk-row
+// block with the rows already scanned masked dead, bins as that block does
+// without reading those rows (a bin of dead rows only loses to any other).
+// ops/approx_topk.py takes the exact top-k of the W minima (torch.topk) and
+// holds this kernel to its plain twin, partial_reduce_plain.
 //
 // What bounds it on the H100: device-memory bytes.  At the scan point (64
 // queries, 1M rows, k = 2,000: W = 125,056, 8 steps) it reads 256 MB of int32
@@ -43,7 +47,7 @@ constexpr int DEAD = 1 << 30;  // ops/approx_topk._DEAD
 
 __global__ void __launch_bounds__(THREADS)
 partial_reduce_kernel(const int* __restrict__ x, int c, int w, int steps,
-                      const int* __restrict__ popc, int scale,
+                      int off, const int* __restrict__ popc, int scale,
                       const unsigned char* __restrict__ dead, long long row0,
                       long long* __restrict__ out) {
   const int b = blockIdx.x * THREADS + threadIdx.x;
@@ -51,9 +55,11 @@ partial_reduce_kernel(const int* __restrict__ x, int c, int w, int steps,
   const int q = blockIdx.y;
   const int* row = x + (size_t)q * c;
   long long best = LLONG_MAX;
+  // the first step whose column lies past the block's dead front
+  const int j0 = b >= off ? 0 : (off - b + w - 1) / w;
 #pragma unroll 4
-  for (int j = 0; j < steps; ++j) {
-    const long long i = (long long)j * w + b;
+  for (int j = j0; j < steps; ++j) {
+    const long long i = (long long)j * w + b - off;
     if (i >= c) break;
     int v = scale * __ldg(row + i);
     if (popc != nullptr) v += __ldg(popc + i);
@@ -70,21 +76,21 @@ partial_reduce_kernel(const int* __restrict__ x, int c, int w, int steps,
 extern "C" {
 
 // x int32 [q, c], popc int32 [c] or null, dead uint8/bool [c] or null, out
-// int64 [q, w]; all contiguous.  `steps` = 2^r, with w * steps >= c.
-// Launches on ``stream`` and returns the first CUDA error (0 = the launch
-// was accepted).
+// int64 [q, w]; all contiguous.  `steps` = 2^r, with w * steps >= c + off,
+// off >= 0.  Launches on ``stream`` and returns the first CUDA error (0 =
+// the launch was accepted).
 int fspann_partial_reduce(const int* x, int q, int c, int w, int steps,
-                          const int* popc, int scale,
+                          int off, const int* popc, int scale,
                           const unsigned char* dead, long long row0,
                           long long* out, void* stream) {
-  if (q < 1 || q > MAX_Q || c < 1 || w < 1 || steps < 1
-      || (long long)w * steps < c || row0 < 0
+  if (q < 1 || q > MAX_Q || c < 1 || w < 1 || steps < 1 || off < 0
+      || (long long)w * steps < (long long)c + off || row0 < 0
       || row0 + c > (long long)INT_MAX + 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((w + THREADS - 1) / THREADS, q);
   partial_reduce_kernel<<<grid, THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      x, c, w, steps, popc, scale, dead, row0, out);
+      x, c, w, steps, off, popc, scale, dead, row0, out);
   return (int)cudaGetLastError();
 }
 

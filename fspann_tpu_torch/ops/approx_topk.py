@@ -18,6 +18,14 @@ follows, for a row of length ``N``:
    bin holds INT64_MAX (none is ever selected: ``W >= k``).
 3. The exact top-k of the ``W`` bin minima in key order.
 
+A row may be the last ``C`` columns of a wider block whose first ``off``
+columns are dead (``_DEAD``): the chunked scan's tail, which the JAX package
+scans as a whole ``chunk``-row block with the rows it already scanned masked
+dead.  Then ``(W, r)`` come from the block's width ``C + off`` and column
+``i`` goes to bin ``(i + off) mod W``; the dead front is never read, since a
+bin of dead rows loses to any other element and, selected, decodes to a dead
+entry either way.
+
 The TPU's order among tied values inside a bin and its lane layout cannot
 be observed off the TPU, so the binning above is the port's own definition;
 :func:`partial_reduce_plain` states it in plain torch.
@@ -110,9 +118,11 @@ def _rank_keys(part: torch.Tensor, row0: int = 0, popc=None, scale: int = 1,
 def _smallest(key: torch.Tensor, k: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` least keys of each row, ascending, decoded to (value,
-    row) int32 pairs."""
+    row) int32 pairs; the INT64_MAX of an empty bin decodes to a dead
+    entry, ``(_DEAD, -1)``."""
     key = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    return (key >> 32).to(torch.int32), (key & _LOW32).to(torch.int32)
+    return (key >> 32).clamp_(max=_DEAD).to(torch.int32), \
+        (key & _LOW32).to(torch.int32)
 
 
 def _rank_topk(part: torch.Tensor, k: int, row0: int = 0
@@ -125,19 +135,21 @@ def _rank_topk(part: torch.Tensor, k: int, row0: int = 0
 
 
 def partial_reduce_plain(part: torch.Tensor, w: int, r: int, row0: int = 0,
-                         popc=None, scale: int = 1, dead=None
+                         popc=None, scale: int = 1, dead=None, off: int = 0
                          ) -> torch.Tensor:
     """The plain torch version of the kernel: int64 [Q, W] bin minima of
-    the keys of :func:`_rank_keys`, element ``i`` in bin ``i mod W`` —
-    the keys padded with INT64_MAX to ``W * 2^r`` columns, viewed as
-    ``[Q, 2^r, W]`` and reduced over the middle axis."""
+    the keys of :func:`_rank_keys`, element ``i`` in bin ``(i + off) mod
+    W`` — the keys padded with INT64_MAX, ``off`` columns in front and up
+    to ``W * 2^r`` behind, viewed as ``[Q, 2^r, W]`` and reduced over the
+    middle axis."""
     q, c = part.shape
     key = _rank_keys(part, row0, popc, scale, dead)
     span = w << r
-    if span < c:
-        raise ValueError(f"{1 << r} x {w} bins cannot hold {c} columns")
-    if span > c:
-        key = torch.cat([key, key.new_full((q, span - c), INT64_MAX)], dim=1)
+    if off < 0 or span < c + off:
+        raise ValueError(f"{1 << r} x {w} bins cannot hold {c} columns "
+                         f"after {off}")
+    key = torch.cat([key.new_full((q, off), INT64_MAX), key,
+                     key.new_full((q, span - c - off), INT64_MAX)], dim=1)
     return key.view(q, 1 << r, w).amin(dim=1)
 
 
@@ -147,8 +159,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_library("approx_topk")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fspann_partial_reduce.argtypes = [vp, ci, ci, ci, ci, vp, ci, vp,
-                                              ctypes.c_longlong, vp, vp]
+        lib.fspann_partial_reduce.argtypes = [vp, ci, ci, ci, ci, ci, vp, ci,
+                                              vp, ctypes.c_longlong, vp, vp]
         lib.fspann_partial_reduce.restype = ci
         lib.fspann_cuda_error_string.argtypes = [ci]
         lib.fspann_cuda_error_string.restype = ctypes.c_char_p
@@ -174,32 +186,33 @@ def _check(part: torch.Tensor, popc, dead) -> None:
 
 
 def partial_reduce(part: torch.Tensor, w: int, r: int, row0: int = 0,
-                   popc=None, scale: int = 1, dead=None) -> torch.Tensor:
+                   popc=None, scale: int = 1, dead=None, off: int = 0
+                   ) -> torch.Tensor:
     """Bin minima int64 [Q, W] of the rank keys of ``part`` (int32 [Q, C]),
-    element ``i`` in bin ``i mod W``, ``W * 2^r >= C``: the kernel on a
-    CUDA tensor, :func:`partial_reduce_plain` on a CPU tensor.
+    element ``i`` in bin ``(i + off) mod W``, ``W * 2^r >= C + off``: the
+    kernel on a CUDA tensor, :func:`partial_reduce_plain` on a CPU tensor.
 
     ``popc`` (int32 [C]) and ``scale`` make the rank value ``scale * part
     + popc``; ``dead`` (bool [C]) sets it to ``_DEAD``; row ids are ``row0
     + column``."""
     _check(part, popc, dead)
     if part.device.type == "cpu":
-        return partial_reduce_plain(part, w, r, row0, popc, scale, dead)
+        return partial_reduce_plain(part, w, r, row0, popc, scale, dead, off)
     q, c = part.shape
     if not (part.is_contiguous()
             and (popc is None or popc.is_contiguous())
             and (dead is None or dead.is_contiguous())):
         raise ValueError("partial_reduce takes contiguous tensors")
-    if not 0 < q <= MAX_Q or c < 1 or (w << r) < c \
+    if not 0 < q <= MAX_Q or c < 1 or off < 0 or (w << r) < c + off \
             or not 0 <= row0 <= row0 + c <= 2 ** 31:
         raise ValueError(f"partial_reduce: unsupported Q={q}, C={c}, W={w}, "
-                         f"r={r}, row0={row0}")
+                         f"r={r}, off={off}, row0={row0}")
     out = torch.empty((q, w), dtype=torch.int64, device=part.device)
     lib = _lib()
     with torch.cuda.device(part.device):
         stream = torch.cuda.current_stream(part.device).cuda_stream
         err = lib.fspann_partial_reduce(
-            part.data_ptr(), q, c, w, 1 << r,
+            part.data_ptr(), q, c, w, 1 << r, off,
             None if popc is None else popc.data_ptr(), scale,
             None if dead is None else dead.data_ptr(), row0, out.data_ptr(),
             stream)
@@ -208,38 +221,49 @@ def partial_reduce(part: torch.Tensor, w: int, r: int, row0: int = 0,
                            f"error {err} "
                            f"({lib.fspann_cuda_error_string(err).decode()})")
     partial_reduce.launches += 1
+    if off:
+        partial_reduce.tail_launches += 1
     return out
 
 
 def binned_rank_topk(part: torch.Tensor, k: int, w: int, r: int,
-                     row0: int = 0, popc=None, scale: int = 1, dead=None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     row0: int = 0, popc=None, scale: int = 1, dead=None,
+                     off: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Reduce to ``w`` bins (:func:`partial_reduce`), then take the exact
     ``k`` least bin keys, ascending, as (value int32 [Q, k], row int32
     [Q, k]).  On a CPU tensor this is the plain statement of what the card
     computes."""
-    return _smallest(partial_reduce(part, w, r, row0, popc, scale, dead), k)
+    return _smallest(partial_reduce(part, w, r, row0, popc, scale, dead, off),
+                     k)
 
 
 def approx_rank_topk(part: torch.Tensor, k: int, row0: int = 0,
                      recall_target: float = RECALL_TARGET, *, popc=None,
-                     scale: int = 1, dead=None
+                     scale: int = 1, dead=None, width: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The approximate ``k`` smallest ``(value, row)`` pairs of each row,
     ascending, where value is ``scale * part + popc`` (``_DEAD`` where
     ``dead``) and row ``row0 + column``: ``lax.approx_max_k`` of the
     negated values.  Returns (value int32 [Q, k], row int32 [Q, k]).
+    ``width`` (>= the row's ``C`` columns) is the block the row ends: its
+    first ``width - C`` columns dead (the module docstring).
 
     On a CUDA tensor with ``r > 0`` this is :func:`binned_rank_topk` (the
     kernel, then ``torch.topk`` of the bins); otherwise (``r == 0``, or a
     CPU tensor, where the JAX package computes the exact top-k too) the
-    exact top-k, :func:`_rank_topk`'s order."""
-    w, r = reduction_output_size(part.shape[1], k, recall_target)
-    if r > 0 and part.device.type != "cpu":
-        return binned_rank_topk(part, k, w, r, row0, popc, scale, dead)
+    exact top-k, :func:`_rank_topk`'s order.  So is a row of at most ``W``
+    columns: each sits alone in its bin."""
+    c = part.shape[1]
+    width = c if width is None else width
+    w, r = reduction_output_size(width, k, recall_target)
+    if r > 0 and c > w and part.device.type != "cpu":
+        return binned_rank_topk(part, k, w, r, row0, popc, scale, dead,
+                                width - c)
     _check(part, popc, dead)
     return _smallest(_rank_keys(part, row0, popc, scale, dead), k)
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset, and those of them with an offset (a
+# chunked scan's tail); chip_smoke.py reads and resets both
 partial_reduce.launches = 0
+partial_reduce.tail_launches = 0

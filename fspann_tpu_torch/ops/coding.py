@@ -19,7 +19,9 @@ The bank is a plain frozen dataclass of numpy arrays, built on the host.
 ``alpha`` is row-normalised with XLA's CPU summation order, so a seed gives
 the JAX package's bank bit for bit: a store that records only the seed and
 the sample statistics (the JAX ``bank.npz``, ``mesh_state.npz``) reopens
-here.  A bank held in memory crosses with
+here.  The sample statistics are XLA:CPU's too (:func:`_omega_from_sample`),
+so a bank built from a sample is the JAX package's, whatever BLAS the host
+has.  A bank held in memory crosses with
 :func:`fspann_tpu_torch.api.convert.bank_from_jax`.
 
 Two encoders, as in the JAX package: :func:`encode_numpy` on the host
@@ -111,21 +113,130 @@ def build_random_bank(d: int, m: int, lam: int, tables: int, divisions: int,
     return GBank(alpha, r, om, m, lam, tables, divisions, seed)
 
 
+# XLA:CPU hands the sample's float32 product [S, d] x [d, N] (N = G*m) to
+# YNNPACK's dot (the default ``xla_cpu_experimental_ynn_fusion_type``).  On
+# an AVX-512 host YNNPACK picks, by the product's shape, a kernel with column
+# tiles of 64, 32, 16 or 8 that keeps each output in 1, 2, 4 or 4 interleaved
+# FMA chains ("lanes"): the least ``ceil(N / tile) * tile * ceil(d / lanes)
+# * lanes * cost``, a tie going to the wider tile.  The contraction is cut
+# into blocks of ``512 * lanes`` steps, each summed on its own, and the
+# block sums are added left to right.  All of it is read from XLA's results
+# (tests/test_torch_coding.py holds it against XLA's product and JAX's
+# bank); the 8-wide kernel's cost is only known to lie between 1.25 and
+# 1.33.
+_YNN_KERNELS = ((64, 1, 1.0), (32, 2, 1.0), (16, 4, 1.0), (8, 4, 1.3))
+_YNN_BLOCK = 512
+_SCREEN_ROWS = 4_096
+
+
+def _ynn_lanes(n: int, d: int) -> int:
+    """The FMA chains per output of the kernel YNNPACK picks for a float32
+    product ``d`` deep and ``n`` columns wide (``_YNN_KERNELS``)."""
+    def cost(kernel):
+        tile, lanes, factor = kernel
+        return (-(-n // tile) * tile * -(-d // lanes) * lanes * factor, -tile)
+    return min(_YNN_KERNELS, key=cost)[1]
+
+
+def _lane_sum(x: np.ndarray, a: np.ndarray, lo: int, hi: int,
+              lanes: int) -> np.ndarray:
+    """float32 ``x[:, lo:hi] · a[:, lo:hi]`` over row pairs in ``lanes``
+    interleaved FMA chains from 0, summed pairwise (``(l0 + l1) + (l2 +
+    l3)``); the contraction steps past the last whole group of ``lanes``
+    are summed the same way with half the lanes and added after."""
+    q = lo + (hi - lo) // lanes * lanes
+    total = None
+    if q > lo:
+        chains = []
+        for j in range(lanes):
+            acc = np.zeros(x.shape[0], np.float32)
+            for k in range(lo + j, q, lanes):
+                acc = threefry.fma(x[:, k], a[:, k], acc)
+            chains.append(acc)
+        while len(chains) > 1:
+            chains = [chains[i] + chains[i + 1]
+                      for i in range(0, len(chains), 2)]
+        total = chains[0]
+    if hi > q:
+        tail = _lane_sum(x, a, q, hi, lanes // 2)
+        total = tail if total is None else total + tail
+    return total
+
+
+def _xla_cpu_dot_f32(x: np.ndarray, a: np.ndarray, lanes: int
+                     ) -> np.ndarray:
+    """float32 dot products of row pairs ``x[p] · a[p]`` (both [P, d]),
+    rounded as XLA:CPU's dot rounds them with a kernel of ``lanes`` chains
+    (:func:`_ynn_lanes`): blocks of ``512 * lanes`` contraction steps, their
+    sums added left to right."""
+    d = x.shape[1]
+    total = None
+    for lo in range(0, d, _YNN_BLOCK * lanes):
+        part = _lane_sum(x, a, lo, min(d, lo + _YNN_BLOCK * lanes), lanes)
+        total = part if total is None else total + part
+    return total
+
+
+def _projection_extremes(x: np.ndarray, a: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Column maxima and minima, float32 [N] each, of the float32 product
+    ``x @ a.T`` (x [S, d], a [N, d]) as XLA:CPU rounds it, whatever BLAS
+    this host has.
+
+    A float64 product, in any summation order, lies within ``B = 2 d 2^-24
+    max|x_i| max|a_j|`` (Euclidean norms) of every float32 result: the
+    float32 dot's error bound, its float64 twin's, and room for underflow.
+    So only an element within ``2 B`` of its column's float64 maximum can
+    hold the float32 maximum (and the mirror for the minimum); those few
+    are recomputed in XLA's order (:func:`_xla_cpu_dot_f32`)."""
+    s, d = x.shape
+    blocks = [torch.from_numpy(x[r0:r0 + _SCREEN_ROWS])
+              for r0 in range(0, s, _SCREEN_ROWS)]
+    x_norm = max((float(b.double().norm(dim=1).max()) for b in blocks),
+                 default=0.0)
+    a64 = torch.from_numpy(a).double()
+    bound = 2 * (2.0 * d * 2.0 ** -24 * x_norm * float(a64.norm(dim=1).max())
+                 + d * 2.0 ** -148)
+    a64t = a64.T.contiguous()
+    hi = torch.full((a.shape[0],), -np.inf, dtype=torch.float64)
+    lo = torch.full((a.shape[0],), np.inf, dtype=torch.float64)
+    ymax = np.full(a.shape[0], -np.inf, np.float32)
+    ymin = np.full(a.shape[0], np.inf, np.float32)
+    picks = []                                 # (rows, columns, value)
+    for r0, b in zip(range(0, s, _SCREEN_ROWS), blocks):
+        e = b.double() @ a64t
+        hi = torch.maximum(hi, e.amax(dim=0))
+        lo = torch.minimum(lo, e.amin(dim=0))
+        rows, cols = torch.nonzero((e >= hi - bound) | (e <= lo + bound),
+                                   as_tuple=True)
+        picks.append((rows + r0, cols, e[rows, cols]))
+    if not picks:
+        return ymax, ymin
+    rows, cols, e = (torch.cat(p) for p in zip(*picks))
+    keep = (e >= hi[cols] - bound) | (e <= lo[cols] + bound)
+    rows, cols = rows[keep].numpy(), cols[keep].numpy()
+    y = _xla_cpu_dot_f32(x[rows], a[cols], _ynn_lanes(a.shape[0], d))
+    np.maximum.at(ymax, cols, y)
+    np.minimum.at(ymin, cols, y)
+    return ymax, ymin
+
+
 def _omega_from_sample(sample: np.ndarray, alpha: np.ndarray,
                        r_unit: np.ndarray,
                        omega_divisor: float) -> tuple[np.ndarray, np.ndarray]:
-    """Per-projection range of the sample → (r, omega).  The [S, G·m]
-    projection is a float32 product on the CPU (torch's CPU matmul is full
-    float32; TF32 exists only on CUDA)."""
-    s = torch.from_numpy(np.ascontiguousarray(sample, np.float32))
-    a = torch.from_numpy(np.ascontiguousarray(alpha, np.float32))
-    g, m, d = a.shape
-    proj = (s @ a.reshape(g * m, d).T).reshape(-1, g, m)        # [S, G, m]
-    rng = proj.amax(dim=0) - proj.amin(dim=0)                   # [G, m]
-    omega = torch.clamp(rng, min=1e-6) / np.float32(omega_divisor)
-    omega = torch.where(omega > 0, omega, torch.full_like(omega, 1e-3))
-    r = torch.from_numpy(np.asarray(r_unit, np.float32)) * omega
-    return r.numpy(), omega.numpy()
+    """Per-projection range of the sample → (r, omega), equal to the JAX
+    package's bit for bit: the projection's extremes as XLA:CPU rounds them
+    (:func:`_projection_extremes`), and the division by the static divisor
+    as XLA compiles it, a product with its float32 reciprocal."""
+    x = np.ascontiguousarray(sample, np.float32)
+    g, m, d = np.shape(alpha)
+    a = np.ascontiguousarray(alpha, np.float32).reshape(g * m, d)
+    hi, lo = _projection_extremes(x, a)
+    rng = (hi - lo).reshape(g, m)
+    omega = np.maximum(rng, np.float32(1e-6)) \
+        * np.float32(1 / np.float32(omega_divisor))
+    omega = np.where(omega > 0, omega, np.float32(1e-3)).astype(np.float32)
+    return np.asarray(r_unit, np.float32) * omega, omega
 
 
 def build_bank_from_sample(sample: np.ndarray, m: int, lam: int, tables: int,

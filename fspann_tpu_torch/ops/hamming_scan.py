@@ -214,15 +214,16 @@ def _finish(best_sc: torch.Tensor, best_id: torch.Tensor, qbits, n: int,
 
 
 def _select(dots: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
-            k: int, row0: int, approx: bool
+            k: int, row0: int, approx: bool, width: int | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` smallest ``(popc - 2 * dots, row)`` pairs (``_DEAD`` at
     ``dead`` columns, rows ``row0 + column``): exact, or approximate with
     ``approx`` (``ops/approx_topk``: on the card the kernel forms the rank
-    value as it reads the products)."""
+    value as it reads the products; the bins are those of a ``width``-row
+    block that the columns end)."""
     if approx:
         return approx_rank_topk(dots, k, row0, popc=popc, scale=-2,
-                                dead=dead)
+                                dead=dead, width=width)
     part = dots.mul_(-2).add_(popc)                      # rank key
     part.masked_fill_(dead[None, :], _DEAD)
     return _rank_topk(part, k, row0)
@@ -255,19 +256,22 @@ def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
 
 def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
                      popc_c: torch.Tensor, dead_c: torch.Tensor, start: int,
-                     start_c: int, carry: tuple, approx: bool) -> tuple:
+                     start_c: int, carry: tuple, approx: bool,
+                     width: int | None = None) -> tuple:
     """One chunked-scan step: score ``bits_c`` (int8 [chunk, B]) against
     ``qbits``, mask dead + tail-duplicate rows (``start_c`` is the clamped
     slice origin; rows with index < ``start`` were already scanned), take
-    the chunk top-k (approximate over the chunk's own width with
-    ``approx``), and 2-key-merge (score, id) into the running carry."""
+    the chunk top-k, and 2-key-merge (score, id) into the running carry.
+    With ``approx`` the top-k bins as a ``width``-row block (default: the
+    block's own rows) that ends with this one, as the JAX package bins its
+    whole-chunk tail block (``approx_topk``)."""
     best_sc, best_id = carry
     k = best_sc.shape[1]
     chunk = bits_c.shape[0]
     ridx = start_c + torch.arange(chunk, dtype=torch.int64,
                                   device=popc_c.device)
     sc, cid = _select(_bit_dots(qbits, bits_c), popc_c,
-                      dead_c | (ridx < start), k, start_c, approx)
+                      dead_c | (ridx < start), k, start_c, approx, width)
     cid = torch.where(sc < _DEAD, cid, torch.full_like(cid, -1))
     # merge with carry: rank (score, id) over the 2k union; dead entries
     # carry id -1, which the signed key orders like the 2-key sort
@@ -290,10 +294,15 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
     blocks.  Returns the carry ``(part int32 [Q, k], row int32 [Q, k])``,
     ``k = min(limit, chunk, n)``, dead entries ``(_DEAD, -1)``.
 
-    The tail block is the rows that are left.  Only when those are fewer
-    than ``k`` (the block top-k needs ``k`` columns) does it start at
-    ``n - chunk`` and re-read scanned rows, which are masked DEAD so every
-    id appears at most once."""
+    Every block's approximate selection bins as the JAX package's
+    ``chunk``-row block (``width=chunk``).  JAX scans its tail as a whole
+    block from ``n - chunk`` with the rows already scanned masked DEAD; the
+    tail here is the ``left`` rows past them, binned at the offset ``chunk
+    - left`` without reading the dead rows (``approx_rank_topk`` takes the
+    exact top-k where ``left <= W``: every live row of JAX's block then
+    sits alone in a bin).  Only when ``left < k`` (the exact top-k needs
+    ``k`` columns) does the tail block start at ``n - chunk`` and re-read
+    scanned rows, masked DEAD: JAX's block itself."""
     n = popc.shape[0]
     q = qbits.shape[0]
     k = min(limit, chunk, n)
@@ -306,7 +315,7 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
         bits_c = unpack_bits_device(rows[sl], code_bits) if code_bits > 0 \
             else rows[sl]
         carry = scan_chunk_merge(qbits, bits_c, popc[sl], dead[sl], start,
-                                 start_c, carry, approx=approx)
+                                 start_c, carry, approx=approx, width=chunk)
         del bits_c            # the unpack scratch goes before the next step
     return carry
 
@@ -323,7 +332,9 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     are unpacked on the device right before the bit product; the packed
     words are what stays resident.  The merge orders by (score, id),
     matching :func:`scan`.  With ``approx`` each block is selected
-    approximately over its own width and the merge stays exact.
+    approximately over the chunk's width, the tail as the JAX package's
+    whole-chunk tail block (:func:`scan_chunks`), and the merge stays
+    exact.
     """
     packed = isinstance(state, PackedScanState)
     if packed and code_bits <= 0:

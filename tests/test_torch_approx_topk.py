@@ -118,6 +118,60 @@ def test_binned_matches_numpy_definition(epilogue):
     np.testing.assert_array_equal(x, x0)    # the epilogue leaves x alone
 
 
+def _numpy_bin_minima(keys, w, off=0):
+    """[Q, w] least key of each bin, column i in bin (i + off) mod w."""
+    best = np.full((keys.shape[0], w), np.iinfo(np.int64).max)
+    for qi in range(keys.shape[0]):
+        np.minimum.at(best[qi], (np.arange(keys.shape[1]) + off) % w,
+                      keys[qi])
+    return best
+
+
+@pytest.mark.parametrize("left", [60, 3_000, 5_121, 9_000, 19_999])
+def test_offset_bins_as_jaxs_whole_block(left):
+    """A chunked scan's tail: ``left`` live columns ending a 20,000-column
+    block (k 100: W 5,120, r 2) whose front ``20,000 - left`` columns were
+    scanned already.  The JAX package bins the whole block with the front
+    DEAD; the port bins only the live columns, at ``off = 20,000 - left``.
+    Every bin that holds a live element keeps JAX's key, every other bin is
+    dead in both, and the selections agree once dead entries read (_DEAD,
+    -1), as the scan's merge reads them; the port's empty bins (INT64_MAX)
+    decode to (_DEAD, -1) by themselves."""
+    rng = np.random.default_rng(left)
+    q, chunk, k = 4, 20_000, 100
+    w, r = at.reduction_output_size(chunk, k)
+    assert (w, r) == (5_120, 2)
+    off = chunk - left
+    start_c = 30_000
+    x = rng.integers(0, 40, (q, chunk)).astype(np.int32)
+    popc = rng.integers(30, 90, chunk).astype(np.int32)
+    dead = rng.random(chunk) < 0.1
+    front = np.arange(chunk) < off
+    v = np.where((dead | front)[None, :], at._DEAD,
+                 popc - 2 * x.astype(np.int64))
+    jax_bins = _numpy_bin_minima(
+        (v << 32) | (start_c + np.arange(chunk)), w)
+    live = torch.from_numpy(x[:, off:])
+    tkw = dict(popc=torch.from_numpy(popc[off:]), scale=-2,
+               dead=torch.from_numpy(dead[off:]))
+    bins = at.partial_reduce_plain(live, w, r, start_c + off, off=off,
+                                   **tkw).numpy()
+    has_live = (jax_bins >> 32) < at._DEAD
+    np.testing.assert_array_equal(bins[has_live], jax_bins[has_live])
+    assert ((bins[~has_live] >> 32) >= at._DEAD).all()
+    want = np.sort(jax_bins, axis=1)[:, :k]
+    wv, wi = (want >> 32).astype(np.int32), (want & 0xFFFFFFFF) \
+        .astype(np.int32)
+    gv, gi = at.binned_rank_topk(live, k, w, r, start_c + off, off=off,
+                                 **tkw)
+    np.testing.assert_array_equal(gv.numpy(), wv)
+    np.testing.assert_array_equal(
+        torch.where(gv < at._DEAD, gi, -1).numpy(),
+        np.where(wv < at._DEAD, wi, -1))
+    if left < k:
+        assert (gv[:, left:] == at._DEAD).all() and (gi[:, left:] == -1).all()
+
+
 def test_partial_reduce_keeps_each_bins_least_key():
     """Equal values keep the bin's lowest index; a lower value later in the
     bin wins; a bin whose live element is its last keeps that one; a bin
@@ -197,6 +251,8 @@ def test_partial_reduce_rejects_what_the_kernel_does_not_take():
         at.partial_reduce(x, 128, 2, dead=torch.zeros(300, dtype=torch.int8))
     with pytest.raises(ValueError, match="bins"):
         at.partial_reduce(x, 128, 1)
+    with pytest.raises(ValueError, match="bins"):
+        at.partial_reduce(x, 128, 2, off=213)
     assert at.partial_reduce.launches == 0        # the CPU launches nothing
 
 

@@ -14,10 +14,15 @@ from fspann_tpu_torch.ops import hamming_scan as ths
 
 # (Q, C, k): small shapes at the kernel's edges (r 1, a ragged last step,
 # W one tile, k = 1) and the scan's bench shapes: the flat scan at 1M (r 3),
-# a full chunk and the 1M chunked scan's tail (r 2), a 4-shard slice (r 1)
+# a full chunk and a 475,712-row slice (r 2), a 4-shard slice (r 1)
 SHAPES = [(3, 1_000, 10), (7, 20_000, 100), (1, 129, 1), (2, 257, 1),
           (64, 1_000_000, 2_000), (64, 524_288, 2_000),
           (7, 475_712, 2_000), (1, 266_384, 2_000)]
+# (Q, C, width, k): C columns ending a width-column block, binned as the
+# block: the 1M chunked scan's tail in its 2^19-row chunk (off 48,576), an
+# offset past one bin row, the least and the largest tail that bins
+OFFSETS = [(7, 475_712, 524_288, 2_000), (3, 700, 1_024, 10),
+           (2, 5_121, 20_000, 100), (1, 19_999, 20_000, 100)]
 
 
 def _cuda():
@@ -53,6 +58,24 @@ def test_partial_reduce_kernel_matches_plain(q, c, k):
         sel = at.approx_rank_topk(dots, k, row0, **kw)
         plain = at._smallest(want, k)
         assert all(torch.equal(a, b) for a, b in zip(sel, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,width,k", OFFSETS)
+def test_partial_reduce_kernel_with_offset_matches_plain(q, c, width, k):
+    dev = _cuda()
+    dots, popc, dead = (t.to(dev) for t in _inputs(q, c, c + width))
+    w, r = at.reduction_output_size(width, k)
+    off = width - c
+    assert r > 0 and c > w
+    got = at.partial_reduce(dots, w, r, 777, popc, -2, dead, off)
+    want = at.partial_reduce_plain(dots, w, r, 777, popc, -2, dead, off)
+    assert torch.equal(got, want)
+    before = at.partial_reduce.launches
+    sel = at.approx_rank_topk(dots, k, 777, popc=popc, scale=-2, dead=dead,
+                              width=width)
+    assert at.partial_reduce.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(sel, at._smallest(want, k)))
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 """Port's LSH coding (fspann_tpu_torch/ops/coding.py) against the JAX package.
 
-With the JAX bank carried across (``api.convert.bank_from_jax``) both
-packages' host encoders give bit-identical codes and keys.  The port's own
-bank comes from ``torch.Generator`` and so differs from JAX's for the same
-seed; its properties (deterministic per seed, unit rows, positive widths)
-are checked on their own."""
+A bank built from a sample equals the JAX package's bit for bit (``alpha``,
+``r`` and ``omega``): the sample's projection extremes are taken in the
+order XLA:CPU's dot sums (``coding._xla_cpu_dot_f32``, held to XLA's float32
+product over a grid of shapes here), and the division by the divisor is the
+product with its float32 reciprocal that XLA compiles.  With the JAX bank
+carried across (``api.convert.bank_from_jax``) both packages' host encoders
+give bit-identical codes and keys."""
 
 import inspect
 
@@ -14,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from fspann_tpu.io import synthetic
 from fspann_tpu.ops import coding as jcoding
 from fspann_tpu_torch.api.convert import bank_from_jax
 from fspann_tpu_torch.ops import coding
@@ -74,6 +77,68 @@ def test_own_bank_deterministic_unit_rows_positive_widths(rng):
                      a.alpha.astype(np.float64))
     np.testing.assert_allclose(a.omega, np.ptp(proj, axis=0) / 2.5,
                                rtol=1e-4)
+
+
+def _sample(kind, n, d, seed):
+    if kind == "normal":
+        return np.random.default_rng(seed).normal(size=(n, d)) \
+            .astype(np.float32)
+    return synthetic.lsh_hard_corpus(n, d, 1, seed=seed)[0]
+
+
+@pytest.mark.parametrize("kind", ["normal", "hard"])
+@pytest.mark.parametrize("n", [257, 1_000, 4_096])
+@pytest.mark.parametrize("seed", [7, 13, 42])
+@pytest.mark.parametrize("d", [16, 128, 256, 512, 960])
+def test_bank_from_sample_equals_jax(d, seed, n, kind):
+    """The package's default bank shape (m 24, 6 tables x 3 divisions: a
+    432-column projection, which XLA sums in 4 chains) built from the same
+    sample by both packages: equal bit for bit."""
+    sample = _sample(kind, n, d, seed)
+    jb = jcoding.build_bank_from_sample(sample, 24, 2, 6, 3, seed)
+    tb = coding.build_bank_from_sample(sample, 24, 2, 6, 3, seed)
+    for f in ("alpha", "r", "omega"):
+        got, want = getattr(tb, f), np.asarray(getattr(jb, f))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want, err_msg=f)
+
+
+@pytest.mark.parametrize("d", [1, 4, 7, 16, 33, 128, 960, 1_030])
+def test_projection_order_matches_xla_dot(d):
+    """``_xla_cpu_dot_f32`` with the chains ``_ynn_lanes`` picks equals
+    XLA:CPU's float32 product at every column count from 2 to 140 and at
+    the shipped configurations' 432, 1,152 and 1,536: all three kernels
+    (1, 2 and 4 chains), their blocks past 512 chains deep and their
+    tails.  (XLA's order is another at d = 2 and 3, and for samples of at
+    most 4 rows times fewer than 8 columns: README "The bank".)"""
+    import jax
+
+    dot = jax.jit(lambda s, a: jnp.einsum(
+        "sd,nd->sn", s, a, precision=jax.lax.Precision.HIGHEST))
+    rng = np.random.default_rng(d)
+    x = (rng.normal(size=(8, d)) * 3).astype(np.float32)
+    seen = set()
+    for n in list(range(2, 141)) + [432, 1_152, 1_536]:
+        a = rng.normal(size=(n, d)).astype(np.float32)
+        want = np.asarray(dot(x, a)).reshape(-1)
+        lanes = coding._ynn_lanes(n, d)
+        seen.add(lanes)
+        got = coding._xla_cpu_dot_f32(np.repeat(x, n, 0), np.tile(a, (8, 1)),
+                                      lanes)
+        np.testing.assert_array_equal(got, want, err_msg=f"n={n}")
+    assert seen == ({1, 4} if d == 1 else {1, 2, 4})
+
+
+def test_projection_extremes_keep_every_candidate():
+    """Rows tied in float64 (duplicates, and a sample on a coarse grid):
+    the screen keeps all of them and the extremes are XLA's."""
+    rng = np.random.default_rng(5)
+    base = np.round(rng.normal(size=(300, 24)) * 4) / 4
+    sample = np.concatenate([base, base[:50]]).astype(np.float32)
+    jb = jcoding.build_bank_from_sample(sample, 10, 2, 2, 2, 3)
+    tb = coding.build_bank_from_sample(sample, 10, 2, 2, 2, 3)
+    np.testing.assert_array_equal(tb.omega, np.asarray(jb.omega))
+    np.testing.assert_array_equal(tb.r, np.asarray(jb.r))
 
 
 def test_bank_from_stats_regenerates_alpha(rng):

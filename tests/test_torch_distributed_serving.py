@@ -8,16 +8,15 @@ assigned ids, counts) bit for bit, distances to 1e-6 relative (both score
 on the host with the same C decrypt-and-score kernel; the JAX tests use the
 same tolerance between two runs of one facade).
 
-Both facades draw their bank inside ``build`` from their own generator, so
-the ``carried_bank`` fixture makes the port's ``build_bank_from_sample``
-return the JAX bank (``bank_from_jax``), with ``alpha`` rounded to multiples
-of 2^-10 in both; with vectors on the 1/16 grid every projection is exact in
-float32, so the two device encoders agree bit for bit whatever their
-summation order
-(tests/test_torch_sharded.py asserts that premise on the codes).  The JAX
-facade serves its scan with ``approx=True``, which XLA:CPU computes exactly;
-the port's facade serves with its default, ``approx=False``, the exact
-top-L (its ``approx=True`` is exact on the CPU too).
+Both facades draw their bank inside ``build``, each from its own
+``build_bank_from_sample``, which give the same bank bit for bit
+(tests/test_torch_coding.py); the ``grid_banks`` fixture then rounds
+``alpha`` to multiples of 2^-10 in both, so that with vectors on the 1/16
+grid every projection is exact in float32 and the two device encoders
+agree bit for bit whatever their summation order
+(tests/test_torch_sharded.py asserts that premise on the codes).  Both
+facades serve their scan with ``approx=True``, the default, which XLA:CPU
+and the port compute exactly on the CPU.
 
 Mirrors tests/test_distributed_serving.py (facade tests) and
 tests/test_i8_storage.py::test_mesh_i8_scan_recall_and_stream_equality."""
@@ -59,23 +58,21 @@ def _grid(x):
 
 
 @pytest.fixture
-def carried_bank(monkeypatch):
-    real = jcoding.build_bank_from_sample
+def grid_banks(monkeypatch):
+    """Each facade draws its own bank (equal bit for bit), with ``alpha``
+    then put on the 2^-10 grid in both, where the two device encoders'
+    summation orders give the same codes."""
+    def on_grid(build):
+        def grid_build(*args, **kw):
+            b = build(*args, **kw)
+            alpha = (np.round(np.asarray(b.alpha, np.float64) * 1024)
+                     / 1024).astype(np.float32)
+            return dataclasses.replace(b, alpha=alpha)
+        return grid_build
 
-    def jbuild(*args, **kw):
-        jb = real(*args, **kw)
-        alpha = (np.round(np.asarray(jb.alpha, np.float64) * 1024) / 1024) \
-            .astype(np.float32)
-        return dataclasses.replace(jb, alpha=alpha)
-
-    def tbuild(*args, **kw):
-        jb = jbuild(*args, **kw)
-        return bank_from_jax(np.asarray(jb.alpha), np.asarray(jb.r),
-                             np.asarray(jb.omega), jb.m, jb.lam, jb.tables,
-                             jb.divisions, jb.seed)
-
-    monkeypatch.setattr(jserving.coding, "build_bank_from_sample", jbuild)
-    monkeypatch.setattr(tserving.coding, "build_bank_from_sample", tbuild)
+    for coding in (jserving.coding, tserving.coding):
+        monkeypatch.setattr(coding, "build_bank_from_sample",
+                            on_grid(coding.build_bank_from_sample))
 
 
 class _Side:
@@ -212,7 +209,7 @@ def test_sharded_encrypted_pipeline(tmp_path, rng):
     assert _recall(out["final"], base, queries, k) > 0.9
 
 
-def test_distributed_encrypted_system_facade(tmp_path, rng, carried_bank):
+def test_distributed_encrypted_system_facade(tmp_path, rng, grid_banks):
     n, d, q, k = 2048, 16, 6, 10
     base, queries = _clusters(rng, n, d, q)
 
@@ -245,7 +242,7 @@ def test_distributed_encrypted_system_facade(tmp_path, rng, carried_bank):
 
 @pytest.mark.parametrize("mode", ["probe", "scan"])
 def test_distributed_system_rerank_and_scan_recall(tmp_path, rng,
-                                                   carried_bank, mode):
+                                                   grid_banks, mode):
     """``rerank_limit`` truncates the probe route's decrypt set per shard;
     in scan mode it is moot (the scan ranks by the full code already)."""
     n, d, q, k = 2048, 16, 6, 10
@@ -268,7 +265,7 @@ def test_distributed_system_rerank_and_scan_recall(tmp_path, rng,
     assert _recall(ids, base, queries, k) > 0.9
 
 
-def test_distributed_index_stream_encrypted(tmp_path, rng, carried_bank):
+def test_distributed_index_stream_encrypted(tmp_path, rng, grid_banks):
     n, d, q, k = 2048, 16, 6, 10
     base, queries = _clusters(rng, n, d, q)
 
@@ -296,7 +293,7 @@ def test_distributed_index_stream_encrypted(tmp_path, rng, carried_bank):
 
 
 def test_distributed_insert_live_searchable_and_rotatable(tmp_path, rng,
-                                                          carried_bank):
+                                                          grid_banks):
     n, d, k = 1600, 16, 5
     base, _ = _clusters(rng, n, d, 1, centers=12, spread=6.0)
     new = _grid(np.full((40, d), 30.0) + rng.normal(size=(40, d)))
@@ -327,7 +324,7 @@ def test_distributed_insert_live_searchable_and_rotatable(tmp_path, rng,
         sys_.close()
 
 
-def test_distributed_facade_checkpoint_restore(tmp_path, rng, carried_bank):
+def test_distributed_facade_checkpoint_restore(tmp_path, rng, grid_banks):
     n, d, k = 1200, 16, 5
     base = _grid(rng.normal(size=(n, d)) * 4)
     queries = _grid(base[rng.integers(0, n, 4)]
@@ -353,7 +350,7 @@ def test_distributed_facade_checkpoint_restore(tmp_path, rng, carried_bank):
     _both(scenario, tmp_path)
 
 
-def test_mesh_deletion_excluded_and_restored(tmp_path, rng, carried_bank):
+def test_mesh_deletion_excluded_and_restored(tmp_path, rng, grid_banks):
     n, d, k = 1200, 16, 5
     base = _grid(rng.normal(size=(n, d)) * 4)
     q = _grid(base[7:8] + rng.normal(size=(1, d)) * 0.01)
@@ -389,7 +386,7 @@ def test_mesh_deletion_excluded_and_restored(tmp_path, rng, carried_bank):
     _both(scenario, tmp_path)
 
 
-def test_mesh_background_migration_daemon(tmp_path, rng, carried_bank):
+def test_mesh_background_migration_daemon(tmp_path, rng, grid_banks):
     n, d, k = 800, 16, 5
     base = _grid(rng.normal(size=(n, d)) * 4)
     queries = _grid(base[rng.integers(0, n, 4)]
@@ -417,7 +414,7 @@ def test_mesh_background_migration_daemon(tmp_path, rng, carried_bank):
     assert sum(_both(scenario, tmp_path)["moved"]) == n
 
 
-def test_mesh_undelete_roundtrip(tmp_path, rng, carried_bank):
+def test_mesh_undelete_roundtrip(tmp_path, rng, grid_banks):
     n, d, k = 800, 16, 5
     base = _grid(rng.normal(size=(n, d)) * 4)
     q = _grid(base[11:12] + rng.normal(size=(1, d)) * 0.01)
@@ -482,7 +479,7 @@ def test_mesh_checkpoint_after_live_insert(tmp_path, rng):
         np.testing.assert_array_equal(files[False][key], want, err_msg=key)
 
 
-def test_mesh_compact_storage_reclaims(tmp_path, rng, carried_bank):
+def test_mesh_compact_storage_reclaims(tmp_path, rng, grid_banks):
     n, d, k = 600, 16, 5
     base = _grid(rng.normal(size=(n, d)) * 4)
     q = base[3:4]
@@ -507,7 +504,7 @@ def test_mesh_compact_storage_reclaims(tmp_path, rng, carried_bank):
     _both(scenario, tmp_path)
 
 
-def test_mesh_adaptive_decrypt_budget(tmp_path, rng, carried_bank):
+def test_mesh_adaptive_decrypt_budget(tmp_path, rng, grid_banks):
     n, d, q, k = 2048, 16, 8, 10
     base, queries = _clusters(rng, n, d, q)
 
@@ -547,7 +544,7 @@ def test_mesh_adaptive_decrypt_budget(tmp_path, rng, carried_bank):
     assert _recall(out["on"][0], base, queries, k) >= r_off - 1 / k
 
 
-def test_mesh_packed_facade_and_checkpoint(tmp_path, rng, carried_bank):
+def test_mesh_packed_facade_and_checkpoint(tmp_path, rng, grid_banks):
     n, d, q, k = 900, 16, 5, 10
     base = _grid(rng.normal(size=(n, d)) * 4)
     queries = _grid(base[rng.integers(0, n, q)]
@@ -590,7 +587,7 @@ def test_mesh_packed_facade_and_checkpoint(tmp_path, rng, carried_bank):
 
 @pytest.mark.parametrize("mode", ["scan", "probe"])
 def test_mesh_search_batches_pipelined_matches_sequential(tmp_path, rng,
-                                                          carried_bank, mode):
+                                                          grid_banks, mode):
     n, d, k = 1536, 16, 8
     base = _grid(rng.normal(size=(n, d)) * 3)
     batches = [_grid(base[rng.integers(0, n, 5)]
@@ -623,7 +620,7 @@ def test_mesh_search_batches_pipelined_matches_sequential(tmp_path, rng,
 
 @pytest.mark.parametrize("packed", ["off", "on"])
 def test_mesh_merge_host_and_ici_differ_in_nothing(tmp_path, rng,
-                                                   carried_bank, packed):
+                                                   grid_banks, packed):
     """``runtime.mesh_merge`` reaches the index (its first reader is the
     facade) and both merges serve the JAX facade's results."""
     n, d, q, k = 1500, 16, 6, 10
@@ -658,7 +655,7 @@ def test_mesh_merge_host_and_ici_differ_in_nothing(tmp_path, rng,
         _Side("torch", tmp_path).scan_cfg(mesh_merge="nvlink")
 
 
-def test_mesh_i8_scan_recall_and_stream_equality(tmp_path, rng, carried_bank):
+def test_mesh_i8_scan_recall_and_stream_equality(tmp_path, rng, grid_banks):
     """i8 payloads: the facade quantizes through the storage dtype BEFORE
     encoding.  The quantized vectors leave the exact grid, so the two
     device encoders may differ on a boundary bit; the final ids are held

@@ -362,6 +362,128 @@ def test_scan_chunks_reads_the_tail_once_when_it_can(rng, monkeypatch):
         assert seen[3] == want_last
 
 
+# (n, chunk, L) around the approximate tail's rule, W(1,024, 10) = 512 and
+# W(4,096, 40) = 2,048: tails of 700 and 513 rows bin as JAX's block, 512
+# and 300 rows are exact, 5 (< k) re-reads JAX's block from n - chunk
+GEOMETRY = [(3 * 1024 + 700, 1024, 10), (3 * 1024 + 513, 1024, 10),
+            (3 * 1024 + 512, 1024, 10), (3 * 1024 + 300, 1024, 10),
+            (3 * 1024 + 5, 1024, 10), (2 * 4096 + 3000, 4096, 40)]
+
+
+@pytest.mark.parametrize("n,chunk,limit", GEOMETRY)
+def test_scan_chunks_tail_takes_jaxs_block_geometry(rng, monkeypatch, n,
+                                                    chunk, limit):
+    """What each block's selection is given, against JAX's loop (block i
+    scans ``chunk`` rows from ``start_c = min(i * chunk, n - chunk)``, rows
+    below ``start = i * chunk`` DEAD, its bins ``reduction_output_size(
+    chunk, k)``): every block bins over the chunk's width, the tail's
+    columns at JAX's offset ``start - start_c``, or it is JAX's block."""
+    seen = []
+    real = ths._select
+
+    def spy(dots, popc, dead, k, row0, approx, width=None):
+        seen.append((row0, dots.shape[1], approx, width))
+        return real(dots, popc, dead, k, row0, approx, width)
+
+    monkeypatch.setattr(ths, "_select", spy)
+    codes, qbits, cb = _mk(rng, n=n, nq=2)
+    st = ths.build_scan_state(codes, cb)
+    ths.scan_chunks(st.bits, st.popc, torch.zeros(n, dtype=torch.bool),
+                    torch.from_numpy(qbits), limit, chunk)
+    nc = -(-n // chunk)
+    start, start_c = (nc - 1) * chunk, n - chunk        # JAX's tail block
+    assert seen[:-1] == [(i * chunk, chunk, True, chunk)
+                         for i in range(nc - 1)]
+    row0, c, approx, width = seen[-1]
+    assert (approx, width, row0 + c) == (True, chunk, n)
+    if n - start >= min(limit, chunk):
+        assert row0 == start and width - c == start - start_c
+    else:
+        assert (row0, c) == (start_c, chunk)
+
+
+def _jax_binned_loop(part, n, chunk, k):
+    """JAX's chunked loop in numpy, each block's top-k binned as
+    ``approx_topk`` defines it (``rank`` values int64 [Q, n], DEAD at
+    tombstones): whole ``chunk``-row blocks, the tail from ``n - chunk``
+    with the rows already scanned DEAD, a (score, id) merge."""
+    from fspann_tpu_torch.ops.approx_topk import _DEAD, reduction_output_size
+    q = part.shape[0]
+    w, r = reduction_output_size(chunk, k)
+    sc = np.full((q, k), _DEAD, np.int64)
+    ids = np.full((q, k), -1, np.int64)
+    for i in range(-(-n // chunk)):
+        start = i * chunk
+        rows = min(start, n - chunk) + np.arange(chunk)
+        v = np.where(rows < start, _DEAD, part[:, rows])
+        keys = (v << 32) | rows
+        if r > 0:
+            bins = np.full((q, w), np.iinfo(np.int64).max)
+            for qi in range(q):
+                np.minimum.at(bins[qi], np.arange(chunk) % w, keys[qi])
+            keys = bins
+        sel = np.sort(keys, axis=1)[:, :k]
+        bsc = sel >> 32
+        bid = np.where(bsc < _DEAD, sel & 0xFFFFFFFF, -1)
+        msc = np.concatenate([sc, bsc], axis=1)
+        mid = np.concatenate([ids, bid], axis=1)
+        o = np.argsort((msc << 32) + mid, axis=1, kind="stable")[:, :k]
+        sc = np.take_along_axis(msc, o, 1)
+        ids = np.take_along_axis(mid, o, 1)
+    return sc, ids
+
+
+@pytest.mark.parametrize("n,chunk,limit", GEOMETRY)
+def test_binned_chunked_scan_matches_jaxs_blocks(rng, monkeypatch, n, chunk,
+                                                 limit):
+    """The card's selection forced on the CPU (``binned_rank_topk`` wherever
+    the bins reduce, as ``approx_rank_topk`` runs it on a CUDA tensor):
+    ``scan_chunks`` gives the numpy statement of JAX's loop over whole
+    blocks, bit for bit."""
+    from fspann_tpu_torch.ops import approx_topk as at
+
+    def on_the_card(part, k, row0=0, recall_target=at.RECALL_TARGET, *,
+                    popc=None, scale=1, dead=None, width=None):
+        c = part.shape[1]
+        width = c if width is None else width
+        w, r = at.reduction_output_size(width, k, recall_target)
+        if r > 0 and c > w:
+            return at.binned_rank_topk(part, k, w, r, row0, popc, scale,
+                                       dead, width - c)
+        return at._smallest(at._rank_keys(part, row0, popc, scale, dead), k)
+
+    monkeypatch.setattr(ths, "approx_rank_topk", on_the_card)
+    codes, qbits, cb = _mk(rng, n=n, nq=64)
+    tomb = rng.random(n) < 0.05
+    st = ths.build_scan_state(codes, cb)
+    sc, ids = ths.scan_chunks(st.bits, st.popc, torch.from_numpy(tomb),
+                              torch.from_numpy(qbits), limit, chunk)
+    dots = qbits.astype(np.int64) @ st.bits.numpy().astype(np.int64).T
+    part = np.where(tomb[None, :], 1 << 30,
+                    st.popc.numpy()[None, :] - 2 * dots)
+    want_sc, want_ids = _jax_binned_loop(part, n, chunk, min(limit, chunk))
+    np.testing.assert_array_equal(sc.numpy(), want_sc)
+    np.testing.assert_array_equal(ids.numpy(), want_ids)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("n,chunk,limit", GEOMETRY)
+def test_scan_chunked_tail_geometry_matches_jax(rng, n, chunk, limit,
+                                                approx):
+    """The same cases through both packages' ``scan_chunked`` on the CPU,
+    where both select exactly: every field bit for bit."""
+    jnp, jhs = _jax()
+    codes, qbits, cb = _mk(rng, n=n, nq=5)
+    tomb = rng.random(n) < 0.05
+    kw = dict(anchor=5, margin=8, approx=approx)
+    j = jhs.scan_chunked(jhs.build_scan_state(codes, cb), jnp.asarray(qbits),
+                         jnp.asarray(tomb), limit, chunk=chunk, **kw)
+    t = ths.scan_chunked(ths.build_scan_state(codes, cb),
+                         torch.from_numpy(qbits), torch.from_numpy(tomb),
+                         limit, chunk=chunk, **kw)
+    _assert_same(j, t)
+
+
 def test_unpack_scratch_is_one_byte_wide(rng):
     """Everything the unpack makes at the size of its input is one byte
     wide, and the packed chunked scan makes no int64 tensor of a chunk's

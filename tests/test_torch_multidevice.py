@@ -575,29 +575,26 @@ def test_jax_checkpoint_restores_into_four_slots(tmp_path):
 
 
 @pytest.fixture
-def carried_bank(monkeypatch):
-    """Both facades draw the JAX bank, ``alpha`` on the 2^-10 grid."""
-    real = jcoding.build_bank_from_sample
+def grid_banks(monkeypatch):
+    """Each facade draws its own bank (equal bit for bit), with ``alpha``
+    then put on the 2^-10 grid in both, where the two device encoders'
+    summation orders give the same codes."""
+    def on_grid(build):
+        def grid_build(*args, **kw):
+            b = build(*args, **kw)
+            alpha = (np.round(np.asarray(b.alpha, np.float64) * 1024)
+                     / 1024).astype(np.float32)
+            return dataclasses.replace(b, alpha=alpha)
+        return grid_build
 
-    def jbuild(*args, **kw):
-        jb = real(*args, **kw)
-        alpha = (np.round(np.asarray(jb.alpha, np.float64) * 1024) / 1024) \
-            .astype(np.float32)
-        return dataclasses.replace(jb, alpha=alpha)
-
-    def tbuild(*args, **kw):
-        jb = jbuild(*args, **kw)
-        return bank_from_jax(np.asarray(jb.alpha), np.asarray(jb.r),
-                             np.asarray(jb.omega), jb.m, jb.lam, jb.tables,
-                             jb.divisions, jb.seed)
-
-    monkeypatch.setattr(jserving.coding, "build_bank_from_sample", jbuild)
-    monkeypatch.setattr(tserving.coding, "build_bank_from_sample", tbuild)
+    for coding in (jserving.coding, tserving.coding):
+        monkeypatch.setattr(coding, "build_bank_from_sample",
+                            on_grid(coding.build_bank_from_sample))
 
 
 @pytest.mark.parametrize("mode,merge", [("probe", "ici"), ("scan", "ici"),
                                         ("scan", "host")])
-def test_facade_over_four_slots(tmp_path, carried_bank, mode, merge):
+def test_facade_over_four_slots(tmp_path, grid_banks, mode, merge):
     """``DistributedEncryptedSystem`` over 4 slots serves the ids and
     distances of the one-slot facade and of the JAX facade, through build,
     search, live insert (scan mode), delete, save and a fresh restore."""
