@@ -127,15 +127,37 @@ Phases (any failure raises and exits non-zero):
      ``l2_topk`` against their plain twins on every distinct card, on this
      path's inputs.  Printed: the cards, peer access between them, device
      ms per batch (CUDA events on every card), peak memory per card.
+ 18. right after phase 17, with the earlier phases' state released: the
+     JAX package's 960-d point (``WIDE``: 1M x 960, m 128 → 6,144-bit
+     codes, L 4,000, margin 72, f16, host encode, batch 64) through
+     ForwardSecureANNSystem at full scale: its build's stages and seconds,
+     its bank's r and omega equal to the JAX package's from the same
+     100,000-row sample, the layout ``scan_packed="auto"`` picks
+     (unpacked) and ``route_batch``'s flat-or-chunked branch; the 1,024
+     queries served with recall@10 >= 0.95 and ratio@100 <= 1.01 (q/s,
+     ART, p50/p95, route/decrypt/refine ms, decrypted), one
+     ``approx_topk`` launch a batch, a mean share >= APPROX_SHARE_GATE of
+     the exact top-4,000 kept, the kernel equal to its plain twin at [64,
+     1M], k 4,000 (timed beside the twin, ``amin`` and its bound), the
+     first batch's exact route equal to the native host scan's; then
+     ``l2_topk`` at the ground truth's shape as in phase 3; peak device
+     memory and the host's MemTotal;
+ 19. the same at 10M x 96 (``DEEP``: m 64, L 2,000, margin 40; r = 6 at
+     [64, 10M]; recall@10 >= 0.98), then the store restored into
+     ``scan_packed="on"`` at capacity 10M + 65,536: served with the gates
+     under the unpacked serving peak, every batch's route equal to
+     ``scan_chunked(approx=True)`` over the same codes unpacked into the
+     same rows and, with approx=False, to the unpacked exact route; one
+     ``insert_live`` of 16,384 rows in place, found by a self search.
 Phase 5 also checks the bank against the JAX package's for the same seed
 (``JAX_BANK_FINGERPRINT``) and the sample statistics of the bank its build
 draws against the JAX package's from the same sample
 (``JAX_SAMPLE_BANK_FINGERPRINT``), and serves a second pass with the 24-bit
 id transfer off (``FSPANN_PACK24=0``), equal in every id and distance.
-Each served path (phases 5, 8, 10, 12, 13, 14, 16 and 17) runs with the kernels'
-launch counts set to 0 just before it and read just after.  The last two
-lines of standard output are the kernels' JSON record and the device JSON
-line.
+Each served path (phases 5, 8, 10, 12, 13, 14, 16, 17, 18 and 19) runs with
+the kernels' launch counts set to 0 just before it and read just after.  The
+last two lines of standard output are the kernels' JSON record and the
+device JSON line.
 """
 
 from __future__ import annotations
@@ -449,19 +471,20 @@ def scan_launches(rows: int, limit: int, chunk: int | None = None) -> int:
     return (r > 0) * (full + (left > w or 0 < left < k))
 
 
-def slice_cfg(**runtime):
-    """bench.py's scan operating point (phases 5, 10 and 11), with
-    ``runtime`` overrides."""
+def slice_cfg(m: int = 64, **runtime):
+    """bench.py's scan operating point (phases 5, 10 and 11; at another
+    ``m``, L and margin phases 18 and 19), with ``runtime`` overrides."""
     from fspann_tpu_torch.config import SystemConfig
 
     cfg = SystemConfig()
+    runtime = {"rerank_limit": 2000, "adaptive_decrypt_margin": 40,
+               **runtime}
     return dataclasses.replace(
-        cfg, paper=dataclasses.replace(cfg.paper, tables=8, m=64),
+        cfg, paper=dataclasses.replace(cfg.paper, tables=8, m=m),
         runtime=dataclasses.replace(
             cfg.runtime, storage_dtype="f16", encode_backend="cpu",
             probe_override=16, block_size=128, refinement_limit=56_000,
-            max_global_candidates=56_000, rerank_limit=2000,
-            adaptive_decrypt_margin=40, routing_mode="scan",
+            max_global_candidates=56_000, routing_mode="scan",
             **runtime)).validate()
 
 
@@ -492,6 +515,75 @@ def serve(sys_, queries, k: int = 100):
 def require_same(a, b, what) -> None:
     require(np.array_equal(a[0], b[0]), f"{what}: ids differ")
     require(np.array_equal(a[1], b[1]), f"{what}: distances differ")
+
+
+def to_host(route) -> dict:
+    return {f: None if getattr(route, f) is None else
+            getattr(route, f).cpu().numpy() for f in FIELDS}
+
+
+def serve_gated(sys_, label: str, queries, gtm, base,
+                recall10: float) -> dict:
+    """One warm-up batch, then ``queries`` served through ``run_queries``:
+    the peak of device memory and the kernel counts read right after the
+    pass (the path's own launches, from the caller's reset on), its times
+    and accuracy printed, and the gates held (recall@10 at least
+    ``recall10``, ratio@100 at most 1.01)."""
+    sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
+    sys_.profiler.clear_rows()
+    peak_pre = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches()
+    rows = [r for r in sys_.profiler.rows if r.k == 10]
+    nq = len(rows)
+    route_ms = sum(r.route_ms for r in rows) / nq
+    r10, r100, ratio = (agg.recall_at_k[10], agg.recall_at_k[100],
+                        agg.ratio_at_k[100])
+    log(f"  served {len(queries)} q: q/s {len(queries) / wall:.1f}  ART "
+        f"{agg.mean_art_ms:.3f} ms  p50 {agg.p50_art_ms:.3f}  p95 "
+        f"{agg.p95_art_ms:.3f}  route {route_ms:.3f} ms  decrypt "
+        f"{sum(r.decrypt_ms for r in rows) / nq:.3f} ms  refine "
+        f"{sum(r.refine_ms for r in rows) / nq:.3f} ms per query")
+    log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
+        f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  peak "
+        f"device memory {peak / 2**30:.2f} GiB (serving), "
+        f"{peak_pre / 2**30:.2f} GiB before (from the caller's reset to the "
+        f"warm-up); kernel launches on this path {counts}")
+    require(r10 >= recall10, f"{label}: recall@10 {r10} < {recall10}")
+    require(ratio <= 1.01, f"{label}: ratio@100 {ratio} > 1.01")
+    return {"agg": agg, "qps": len(queries) / wall, "route_ms": route_ms,
+            "peak": peak, "peak_pre": peak_pre, "counts": counts}
+
+
+def served_share(idx, label: str, queries, per_batch: int) -> dict:
+    """The served route (``route_batch``, approximate) of every batch of 64
+    with its ``approx_topk`` launches held to ``per_batch`` a batch, the
+    same batches' exact routes (``approx=False``, on the host), and the
+    share of each query's exact top-L that the served route keeps, held to
+    ``APPROX_SHARE_GATE``."""
+    batches = [queries[s:s + 64] for s in range(0, len(queries), 64)]
+    before = read_launches()["approx_topk"]
+    routed = [idx.route_batch(*idx.encode_queries(q)) for q in batches]
+    launches = read_launches()["approx_topk"] - before
+    require(per_batch > 0 and launches == len(batches) * per_batch,
+            f"{label}: {launches} approx_topk launches for {len(batches)} "
+            f"served batches")
+    exact = [to_host(exact_route(idx, q)) for q in batches]
+    served = tuple(np.concatenate([getattr(r, f).cpu().numpy()
+                                   for r in routed]) for f in ("ids", "scores"))
+    want = tuple(np.concatenate([e[f] for e in exact])
+                 for f in ("ids", "scores"))
+    require((served[1] >= want[1]).all(), f"{label}: a served score better "
+            "than the exact top-L's at its rank")
+    share = retained_share(served[0], want[0])
+    require(share.mean() >= APPROX_SHARE_GATE, f"{label}: the served route "
+            f"kept {share.mean():.4f} of the exact top-L")
+    return {"served": served, "route": want, "exact": exact, "share": share,
+            "launches": launches}
 
 
 def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
@@ -561,17 +653,11 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
     torch.cuda.synchronize()
     t_gt = time.perf_counter() - t0
-    sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
-    sys_.profiler.clear_rows()
-    peak = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
-    wall = time.perf_counter() - t0
-    peak_serve = torch.cuda.max_memory_allocated()
-    counts = read_launches()
-    launches = counts["l2_topk"]
-    require(launches > 0, "ground truth did not run the l2_topk kernel")
+    log(f"  GT (kernel) {t_gt:.2f} s")
+    sv = serve_gated(sys_, "phase 5", queries, gtm, base, 0.98)
+    counts = sv["counts"]
+    require(counts["l2_topk"] > 0, "ground truth did not run the l2_topk "
+            "kernel")
     # the served route selects approximately: one launch a batch of the
     # flat scan at 1M (the warm-up batch and the pass's 16)
     per_batch = scan_launches(N_SLICE, slice_cfg().runtime
@@ -579,24 +665,7 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     require(per_batch == 1 and counts["approx_topk"]
             >= (1 + Q_SLICE // 64) * per_batch,
             f"the served route did not run approx_topk: {counts}")
-    rows = [r for r in sys_.profiler.rows if r.k == 10]
-    nq = len(rows)
-    log(f"  GT (kernel) {t_gt:.2f} s; kernel launches on this path "
-        f"{counts}")
-    log(f"  {agg.paper_line()}")
-    log(f"  q/s {Q_SLICE / wall:.1f}  ART {agg.mean_art_ms:.3f} ms  "
-        f"p50 {agg.p50_art_ms:.3f}  p95 {agg.p95_art_ms:.3f}  "
-        f"route {sum(r.route_ms for r in rows) / nq:.3f} ms  decrypt "
-        f"{sum(r.decrypt_ms for r in rows) / nq:.3f} ms  refine "
-        f"{sum(r.refine_ms for r in rows) / nq:.3f} ms per query")
-    r10, r100 = agg.recall_at_k[10], agg.recall_at_k[100]
-    ratio = agg.ratio_at_k[100]
-    log(f"  recall@10 {r10:.4f}  recall@100 {r100:.4f}  ratio@100 "
-        f"{ratio:.4f}  mean decrypted {agg.mean_cand_decrypted:.1f}  "
-        f"peak device memory {peak / 2**30:.2f} GiB (build, ground truth, "
-        f"warm-up), {peak_serve / 2**30:.2f} GiB (serving)")
-    require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
-    require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
+    log(f"  {sv['agg'].paper_line()}")
     ref = serve(sys_, queries)
     # the ranked ids cross to the host 24-bit packed by default on the card;
     # one more pass with the packing off must serve the same results
@@ -607,34 +676,19 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
     finally:
         del os.environ["FSPANN_PACK24"]
     require_same(unpacked, ref, "FSPANN_PACK24=0 vs the packed default")
-    log(f"  24-bit id transfer: on (default) {Q_SLICE / wall:.1f} q/s, route "
-        f"wait {sum(r.route_ms for r in rows) / nq:.3f} ms per query; off "
-        f"{qps_off:.1f} q/s, route wait {route_off:.3f} ms per query; every "
-        f"id and distance equal")
+    log(f"  24-bit id transfer: on (default) {sv['qps']:.1f} q/s, route "
+        f"wait {sv['route_ms']:.3f} ms per query; off {qps_off:.1f} q/s, "
+        f"route wait {route_off:.3f} ms per query; every id and distance "
+        f"equal")
     idx = sys_.index
-    before = read_launches()["approx_topk"]
-    routed = [idx.route_batch(*idx.encode_queries(queries[s:s + 64]))
-              for s in range(0, Q_SLICE, 64)]
-    served_launches = read_launches()["approx_topk"] - before
-    require(served_launches == Q_SLICE // 64 * per_batch,
-            f"{served_launches} approx_topk launches for {Q_SLICE // 64} "
-            f"served batches")
-    exact = [exact_route(idx, queries[s:s + 64])
-             for s in range(0, Q_SLICE, 64)]
-    served, want = (tuple(np.concatenate(
-        [getattr(r, f).cpu().numpy() for r in rs]) for f in ("ids", "scores"))
-        for rs in (routed, exact))
-    require((served[1] >= want[1]).all(), "a served score better than the "
-            "exact top-L's at its rank")
-    share = retained_share(served[0], want[0])
-    require(share.mean() >= APPROX_SHARE_GATE,
-            f"the served route kept {share.mean():.4f} of the exact top-L")
+    sh = served_share(idx, "phase 5", queries, per_batch)
+    share = sh["share"]
     b0 = idx.encode_queries(queries[:64])
     call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
     route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
     exact_ms = time_ms(scan_call(idx, queries[:64], approx=False), reps=5)
     log(f"  served route (approximate top-L, as the JAX package serves): "
-        f"{per_batch} approx_topk launch a batch, {served_launches} for the "
+        f"{per_batch} approx_topk launch a batch, {sh['launches']} for the "
         f"{Q_SLICE // 64} batches; share of the exact top-2,000 kept: mean "
         f"{share.mean():.6f} min {share.min():.6f} (gate: mean >= "
         f"{APPROX_SHARE_GATE})")
@@ -642,9 +696,10 @@ def phase_slice(dev, base, queries, work) -> tuple[dict, tuple, dict, dict]:
         f"{route_ms:.3f} ms served (approximate), {exact_ms:.3f} ms with "
         f"approx=False (CUDA events); route_batch from host codes, host "
         f"work between launches included: {call_ms:.3f} ms")
-    extras = {"peak_serve": peak_serve, "bank": bank,
+    extras = {"peak_serve": sv["peak"], "bank": bank,
               "codes": idx._scan_codes, "route_ms": route_ms,
-              "route": want, "served_route": served}
+              "route": sh["route"], "exact": sh["exact"],
+              "served_route": sh["served"]}
     sys_.shutdown()
 
     # the kernel against its plain twin and the library call at the
@@ -668,6 +723,46 @@ def approx_bound_ms(q: int, c: int, w: int) -> tuple[float, str]:
     mem = (4 * q * c + 5 * c + 8 * q * w) / HBM_BYTES
     ops = q * c / F32_FLOPS
     return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+
+
+def time_approx(dots, w: int, r: int, row0: int = 0, off: int = 0,
+                **epi) -> dict:
+    """``partial_reduce`` over ``dots`` (int32 [Q, C]) in turns with its
+    plain twin and the library's bin minimum (``amin`` over the int64 keys
+    padded to [Q, 2^r, W] as the twin pads them; the key's making not
+    timed): plain, library, kernel, kernel, library, plain.  Returns the
+    kernel's record: mean ms, turns, the others' ms and the bound."""
+    from fspann_tpu_torch.ops import approx_topk as at
+
+    q, c = dots.shape
+    key = at._rank_keys(dots, row0, **epi)
+    key = torch.cat([key.new_full((q, off), at.INT64_MAX), key,
+                     key.new_full((q, (w << r) - c - off), at.INT64_MAX)],
+                    dim=1)
+    fns = {"plain": lambda: at.partial_reduce_plain(dots, w, r, row0,
+                                                    off=off, **epi),
+           "library": lambda: key.view(q, 1 << r, w).amin(dim=1),
+           "kernel": lambda: at.partial_reduce(dots, w, r, row0, off=off,
+                                               **epi)}
+    turns = {name: [] for name in fns}
+    for name in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        turns[name].append(time_ms(fns[name], reps=5))
+    del key
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    bound, by = approx_bound_ms(q, c, w)
+    return {"ms": ms["kernel"], "turns": turns["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound_ms": bound, "bound_by": by}
+
+
+def approx_line(rec: dict) -> str:
+    return (f"kernel {rec['ms']:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in rec['turns'])}), plain twin "
+            f"{rec['plain_ms']:.3f} ms, library (amin over the padded int64 "
+            f"key, the key's making not timed) {rec['library_ms']:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{HBM_BYTES / 1e12:.2f} TB/s), kernel at "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it")
 
 
 def retained_share(got_ids: np.ndarray, want_ids: np.ndarray) -> np.ndarray:
@@ -783,52 +878,29 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
     dots = hs._bit_dots(qbits[:64], state.bits)
     epi = dict(popc=state.popc, scale=-2, dead=tomb)
     w, r = at.reduction_output_size(n, APPROX_L)
-    key = at._rank_keys(dots, 0, **epi)
-    key = torch.cat([key, key.new_full((64, (w << r) - n), at.INT64_MAX)],
-                    dim=1)
+    rec = time_approx(dots, w, r, **epi)
     part = (dots * -2 + state.popc).masked_fill(tomb[None, :], at._DEAD)
-    fns = {"plain": lambda: at.partial_reduce_plain(dots, w, r, 0, **epi),
-           "library": lambda: key.view(64, 1 << r, w).amin(dim=1),
-           "kernel": lambda: at.partial_reduce(dots, w, r, 0, **epi),
-           "exact": lambda: hs._rank_topk(part, APPROX_L),
+    fns = {"exact": lambda: hs._rank_topk(part, APPROX_L),
            "select": lambda: at.approx_rank_topk(dots, APPROX_L, **epi)}
     turns = {name: [] for name in fns}
-    for name in ("plain", "library", "kernel", "kernel", "library", "plain",
-                 "exact", "select", "select", "exact"):
+    for name in ("exact", "select", "select", "exact"):
         turns[name].append(time_ms(fns[name], reps=5))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    bound, by = approx_bound_ms(64, n, w)
-    del key, part, dots
-    log(f"  [64, {n}] -> W={w} bins (r={r}): kernel {ms['kernel']:.4f} ms "
-        f"(turns {', '.join(f'{t:.4f}' for t in turns['kernel'])}), plain "
-        f"twin {ms['plain']:.3f} ms, library (amin over the padded int64 "
-        f"key, the key's making not timed) {ms['library']:.4f} ms; bound "
-        f"{bound:.4f} ms ({by}, {HBM_BYTES / 1e12:.2f} TB/s), kernel at "
-        f"{bound / ms['kernel']:.1%} of it; whole approximate selection "
-        f"(kernel + topk of the bins) {ms['select']:.4f} ms, exact top-L of "
-        f"the same rank values ({APPROX_L} of {n}, one int64 key) "
-        f"{ms['exact']:.4f} ms")
+    del part, dots
+    log(f"  [64, {n}] -> W={w} bins (r={r}): " + approx_line(rec)
+        + f"; whole approximate selection (kernel + topk of the bins) "
+        f"{ms['select']:.4f} ms, exact top-L of the same rank values "
+        f"({APPROX_L} of {n}, one int64 key) {ms['exact']:.4f} ms")
 
     # the chunked scan's tail with its offset, Q = 64, in turns
     lo = 1 << 19
     w_t, r_t = at.reduction_output_size(lo, APPROX_L)
     dots = hs._bit_dots(qbits[:64], state.bits[lo:])
-    epi = dict(popc=state.popc[lo:], scale=-2, dead=tomb[lo:],
-               off=2 * lo - n)
-    tail = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = at.partial_reduce if name == "kernel" else at.partial_reduce_plain
-        tail[name].append(time_ms(lambda: fn(dots, w_t, r_t, lo, **epi),
-                                  reps=5))
-    tail_ms = {name: sum(t) / len(t) for name, t in tail.items()}
-    tail_bound, tail_by = approx_bound_ms(64, n - lo, w_t)
+    tail = time_approx(dots, w_t, r_t, lo, 2 * lo - n, popc=state.popc[lo:],
+                       scale=-2, dead=tomb[lo:])
     del dots
     log(f"  chunk tail [64, {n - lo}] at offset {2 * lo - n} -> W={w_t} bins "
-        f"(r={r_t}), the JAX package's 2^19-row block: kernel "
-        f"{tail_ms['kernel']:.4f} ms (turns "
-        f"{', '.join(f'{t:.4f}' for t in tail['kernel'])}), plain twin "
-        f"{tail_ms['plain']:.3f} ms; bound {tail_bound:.4f} ms ({tail_by}), "
-        f"kernel at {tail_bound / tail_ms['kernel']:.1%} of it")
+        f"(r={r_t}), the JAX package's 2^19-row block: " + approx_line(tail))
 
     # the path: the scan entry points with approx=True over the 16 batches,
     # the chunked scan on the bits and on the packed words
@@ -900,15 +972,14 @@ def phase_approx(dev, queries, p5) -> tuple[dict, dict]:
             f"{k} {v:.3f} ms" for k, v in scan_ms.items()))
     del state, packed, qbits, tomb, no_tomb, runs, jax_loop
     torch.cuda.empty_cache()
-    return counts, {"max_abs_err": float(err), "ms": ms["kernel"],
-                    "plain_ms": ms["plain"], "library_ms": ms["library"],
-                    "bound_ms": bound, "bound_by": by,
+    del rec["turns"]
+    return counts, {"max_abs_err": float(err), **rec,
                     "select_ms": ms["select"], "exact_ms": ms["exact"],
                     "share_mean": float(shares["flat"].mean()),
                     "share_min": float(shares["flat"].min()),
-                    "tail_ms": tail_ms["kernel"],
-                    "tail_plain_ms": tail_ms["plain"],
-                    "tail_bound_ms": tail_bound}
+                    "tail_ms": tail["ms"], "tail_plain_ms": tail["plain_ms"],
+                    "tail_library_ms": tail["library_ms"],
+                    "tail_bound_ms": tail["bound_ms"]}
 
 
 def hamming_bound(n: int, c: int, qcodes: torch.Tensor,
@@ -1382,6 +1453,103 @@ def phase_packed(dev, unpacked_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
+def serve_packed(dev, label: str, cfg, db: str, d: int, n: int, codes,
+                 base, queries, gtm, recall10: float,
+                 unpacked: dict) -> tuple:
+    """Phases 10 and 19: the ``n``-row store in ``db`` restored into the
+    packed, capacity-padded layout ``cfg`` names, and served with the
+    gates, its serving peak under ``unpacked["peak_serve"]`` (the unpacked
+    point's); every batch's route equal to ``scan_chunked(approx=True)``
+    over ``codes`` (the unpacked build's) unpacked into the same rows, and
+    with approx=False to the unpacked point's exact route of the batch
+    (``unpacked["exact"]``).  ``gtm`` None: the ground truth is computed
+    here, on the path.  Returns the system and the path's kernel counts,
+    read right after the served pass: the restore, the ground truth, the
+    warm-up and the 16 batches."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.io import groundtruth
+    from fspann_tpu_torch.ops import hamming_scan as hs
+
+    cap = cfg.runtime.scan_capacity_rows
+    stale, left = release_earlier_phases()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+    sys_ = ForwardSecureANNSystem(cfg, db, d, query_batch=64, device=dev)
+    t0 = time.perf_counter()
+    restored = sys_.restore_index_from_disk()
+    t_restore = time.perf_counter() - t0
+    idx = sys_.index
+    st = idx._scan_state
+    require(restored == n and isinstance(st, hs.PackedScanState),
+            f"{label}: restored {restored} into {type(st).__name__}")
+    require(st.words.device.type == torch.device(dev).type
+            and st.words.dtype == torch.int32 and st.words.shape[0] == cap,
+            (label, st.words.device, st.words.shape))
+    log(f"  packed: restore of {n} rows {t_restore:.2f} s into "
+        f"{tuple(st.words.shape)} int32 words on {st.words.device}, "
+        f"{st.words.numel() * 4 / 1e9:.3f} GB (unpacked bits: "
+        f"{n * codes[0].nbytes * 8 / 1e9:.2f} GB); earlier phases' "
+        f"systems held {stale / 2**30:.2f} GiB of device memory until the "
+        f"cycle collector ran, {left / 2**30:.2f} GiB after")
+    if gtm is None:
+        gtm = groundtruth.precompute(base, queries, k=100, backend="kernel",
+                                     device=dev)
+    sv = serve_gated(sys_, f"{label} packed", queries, gtm, base, recall10)
+    require(sv["peak"] < unpacked["peak_serve"], f"{label}: the packed "
+            f"serving peak {sv['peak']} is not under the unpacked one "
+            f"{unpacked['peak_serve']}")
+
+    # the served route == scan_chunked(approx=True) over the same codes
+    # unpacked into the same rows; with approx=False == the unpacked exact
+    # route
+    cb, rt = idx.cfg.paper.code_bits, idx.cfg.runtime
+    limit = rt.effective_refinement()
+    per_batch = scan_launches(cap, limit, 1 << 19)
+    flat = hs.build_scan_state(np.concatenate(
+        [codes, np.zeros((cap - n,) + codes.shape[1:], codes.dtype)]), cb,
+        device=dev)
+    tomb = idx._tombstones_scan()
+    adaptive = dict(anchor=rt.adaptive_decrypt_anchor,
+                    margin=rt.adaptive_decrypt_margin,
+                    floor=rt.adaptive_decrypt_floor)
+    before = read_launches()["approx_topk"]
+    for b, s in enumerate(range(0, Q_SLICE, 64)):
+        qc, qk = idx.encode_queries(queries[s:s + 64])
+        got = idx.route_batch(qc, qk)
+        qbits = torch.from_numpy(hs.unpack_bits_numpy(qc, cb)).to(dev)
+        want = hs.scan_chunked(flat, qbits, tomb, limit, **adaptive)
+        for f in FIELDS:
+            require(torch.equal(getattr(got, f), getattr(want, f)),
+                    (f"{label}: served packed route vs chunked scan of the "
+                     "bits", s, f))
+        ex = to_host(exact_route(idx, queries[s:s + 64]))
+        for f in ("ids", "scores", "n_unique", "n_dec"):
+            require(np.array_equal(ex[f], unpacked["exact"][b][f]),
+                    (f"{label}: exact packed route vs the unpacked one", s, f))
+    twins = read_launches()["approx_topk"] - before
+    require(twins == 2 * Q_SLICE // 64 * per_batch,
+            f"{label}: {twins} approx_topk launches for {Q_SLICE // 64} "
+            f"served batches and their twins")
+    del flat, tomb, got, want
+    torch.cuda.empty_cache()
+    require(sv["counts"]["approx_topk"] == (1 + Q_SLICE // 64) * per_batch,
+            f"{label}: {sv['counts']['approx_topk']} approx_topk launches "
+            f"for the warm-up and {Q_SLICE // 64} served batches")
+    b0 = idx.encode_queries(queries[:64])
+    call_ms = time_ms(lambda: idx.route_batch(*b0), reps=3)
+    route_ms = time_ms(scan_call(idx, queries[:64]), reps=3)
+    log(f"  packed: peak device memory while serving {sv['peak'] / 2**30:.2f}"
+        f" GiB (unpacked {unpacked['peak_serve'] / 2**30:.2f} GiB); served "
+        f"route of every batch == scan_chunked(approx=True) over the same "
+        f"codes unpacked into the same {cap} rows, every field ({per_batch} "
+        f"approx_topk launches a batch: chunks of 2^19 rows, the "
+        f"{cap - (cap // (1 << 19)) * (1 << 19)}-row tail not reduced); with "
+        f"approx=False == the unpacked exact route; packed scan of one batch "
+        f"of 64 on inputs on the card: {route_ms:.3f} ms (CUDA events); "
+        f"route_batch from host codes: {call_ms:.3f} ms")
+    return sys_, sv["counts"]
+
+
 def phase_lifecycle(dev, work, base, queries, p5: dict) -> tuple[dict, dict]:
     """Phase 10: phase 5's store restored into a packed, capacity-padded
     system; serve, live insert in place and past capacity, delete, rotate,
@@ -1389,107 +1557,24 @@ def phase_lifecycle(dev, work, base, queries, p5: dict) -> tuple[dict, dict]:
     counts and the unpacked restore's exact CUDA route of the first batch
     (for phase 11)."""
     from fspann_tpu_torch.api.system import ForwardSecureANNSystem
-    from fspann_tpu_torch.io import groundtruth, synthetic
+    from fspann_tpu_torch.io import synthetic
     from fspann_tpu_torch.ops import hamming_scan as hs
 
     db = os.path.join(work, "db")
     cap = N_SLICE + 65_536
     extra, _ = synthetic.lsh_hard_corpus(5 * 16_384, 128, 1, seed=43)
     new_ids = N_SLICE + np.arange(len(extra), dtype=np.int64)
-    stale, left = release_earlier_phases()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()                   # counts from here are the path's
-    sys_ = ForwardSecureANNSystem(
-        slice_cfg(scan_packed="on", scan_capacity_rows=cap), db, 128,
-        query_batch=64)
-    t0 = time.perf_counter()
-    restored = sys_.restore_index_from_disk()
-    t_restore = time.perf_counter() - t0
+    log(f"phase 10 lifecycle at {N_SLICE}: phase 5's store, packed at "
+        f"capacity {cap}")
+    sys_, served = serve_packed(
+        dev, "phase 10", slice_cfg(scan_packed="on", scan_capacity_rows=cap),
+        db, 128, N_SLICE, p5["codes"], base, queries, None, 0.98, p5)
+    require(served["l2_topk"] > 0, "ground truth did not run l2_topk")
     idx = sys_.index
     st = idx._scan_state
-    require(restored == N_SLICE, f"restored {restored}")
-    require(isinstance(st, hs.PackedScanState), f"state {type(st)}")
-    require(st.words.device.type == torch.device(dev).type
-            and st.words.dtype == torch.int32 and st.words.shape[0] == cap,
-            (st.words.device, st.words.shape))
-    words_gb = st.words.numel() * 4 / 1e9
-    log(f"phase 10 lifecycle at {N_SLICE}: restore {t_restore:.2f} s into a "
-        f"packed state {tuple(st.words.shape)} int32 on {st.words.device}, "
-        f"{words_gb:.3f} GB of words (phase 5's bit matrix: "
-        f"{N_SLICE * 3072 / 1e9:.2f} GB); earlier phases' systems held "
-        f"{stale / 2**30:.2f} GiB of device memory until the cycle "
-        f"collector ran, {left / 2**30:.2f} GiB after")
 
-    gtm = groundtruth.precompute(base, queries, k=100, backend="kernel")
-    sys_.run_queries(queries[:64], gtm, base, ks=(10,))   # warm-up
-    sys_.profiler.clear_rows()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    agg = sys_.run_queries(queries, gtm, base, ks=(1, 10, 100))
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    rows = [r for r in sys_.profiler.rows if r.k == 10]
-    r10, ratio = agg.recall_at_k[10], agg.ratio_at_k[100]
-    log(f"  served {Q_SLICE} q: q/s {Q_SLICE / wall:.1f}  ART "
-        f"{agg.mean_art_ms:.3f} ms  route "
-        f"{sum(r.route_ms for r in rows) / len(rows):.3f} ms per query  "
-        f"recall@10 {r10:.4f}  ratio@100 {ratio:.4f}  mean decrypted "
-        f"{agg.mean_cand_decrypted:.1f}  peak device memory "
-        f"{peak / 2**30:.2f} GiB while serving (unpacked scan point, phase "
-        f"5: {p5['peak_serve'] / 2**30:.2f} GiB)")
-    require(peak < p5["peak_serve"], f"the packed state's serving peak "
-            f"{peak} is not under the unpacked scan point's "
-            f"{p5['peak_serve']}")
-    require(r10 >= 0.98, f"recall@10 {r10} < 0.98")
-    require(ratio <= 1.01, f"ratio@100 {ratio} > 1.01")
-
-    # the served route (approximate, chunk by chunk) == the chunked scan with
-    # approx=True over phase 5's codes unpacked into the same padded rows;
-    # with approx=False == phase 5's exact route
-    cb = idx.cfg.paper.code_bits
-    limit = idx.cfg.runtime.effective_refinement()
-    per_batch = scan_launches(cap, limit, 1 << 19)
-    flat = hs.build_scan_state(np.concatenate(
-        [p5["codes"], np.zeros((cap - N_SLICE,) + p5["codes"].shape[1:],
-                               p5["codes"].dtype)]), cb, device=dev)
-    tomb = idx._tombstones_scan()
-    adaptive = dict(anchor=idx.cfg.runtime.adaptive_decrypt_anchor,
-                    margin=idx.cfg.runtime.adaptive_decrypt_margin,
-                    floor=idx.cfg.runtime.adaptive_decrypt_floor)
-    exact = []
-    before = read_launches()["approx_topk"]
-    for s in range(0, Q_SLICE, 64):
-        qc, qk = idx.encode_queries(queries[s:s + 64])
-        got = idx.route_batch(qc, qk)
-        qbits = torch.from_numpy(hs.unpack_bits_numpy(qc, cb)).to(dev)
-        want = hs.scan_chunked(flat, qbits, tomb, limit, **adaptive)
-        for f in FIELDS:
-            require(torch.equal(getattr(got, f), getattr(want, f)),
-                    ("served packed route vs chunked scan of the bits", s, f))
-        exact.append(exact_route(idx, queries[s:s + 64]))
-    served_launches = read_launches()["approx_topk"] - before
-    require(served_launches == 2 * Q_SLICE // 64 * per_batch,
-            f"{served_launches} approx_topk launches for {Q_SLICE // 64} "
-            f"served batches and their twins")
-    require_same(tuple(np.concatenate([getattr(r, f).cpu().numpy()
-                                       for r in exact])
-                       for f in ("ids", "scores")), p5["route"],
-                 "exact packed route vs phase 5's exact route")
-    del flat, tomb, got, want, exact
-    torch.cuda.empty_cache()
-    log(f"  served route of every batch == scan_chunked(approx=True) over "
-        f"phase 5's codes unpacked into the same {cap} rows, every field "
-        f"({per_batch} approx_topk launches a batch: chunks of 2^19 rows, "
-        f"the {cap - 2 * (1 << 19)}-row tail is not reduced); with "
-        f"approx=False == phase 5's exact route")
-    b0 = idx.encode_queries(queries[:64])
-    call_ms = time_ms(lambda: idx.route_batch(*b0), reps=5)
-    route_ms = time_ms(scan_call(idx, queries[:64]), reps=5)
-    log(f"  packed scan of one batch of 64 over {cap} rows on inputs on the "
-        f"card: {route_ms:.3f} ms (CUDA events; unpacked, phase 5: "
-        f"{p5['route_ms']:.3f} ms); route_batch from host codes: "
-        f"{call_ms:.3f} ms")
-
+    # the lifecycle: counts from here are the path's again
+    reset_launches()
     ptr, shape = st.words.data_ptr(), tuple(st.words.shape)
     ms = []
     for i in range(4):
@@ -1562,8 +1647,7 @@ def phase_lifecycle(dev, work, base, queries, p5: dict) -> tuple[dict, dict]:
                 ("exact route after flush and unpacked restore", f))
     cuda_route = {f: getattr(again, f).cpu().numpy() for f in FIELDS}
     back.shutdown()
-    counts = read_launches()
-    require(counts["l2_topk"] > 0, "ground truth did not run l2_topk")
+    counts = {k: v + served[k] for k, v in read_launches().items()}
     log(f"  self search of 64 appended rows: own id first; 32 deleted, "
         f"never returned; rotation v{rep['old_version']} -> "
         f"v{rep['new_version']} re-encrypted {rep['reencrypted']} in "
@@ -2325,6 +2409,262 @@ def phase_multislot(base, queries, work, refs) -> dict:
     return counts
 
 
+@dataclasses.dataclass(frozen=True)
+class Point:
+    """One of the JAX package's two largest served points, at full scale
+    through ``ForwardSecureANNSystem``: bench.py's scan profile (f16
+    payloads, host encode, batch 64, 1,024 queries of the seed-42
+    ``lsh_hard_corpus``) at another width, code width, L and margin."""
+
+    phase: int
+    name: str
+    n: int
+    d: int
+    m: int               # projections a group: 24 groups x m x 2 bits
+    limit: int           # rerank_limit, the decrypt budget L
+    margin: int          # adaptive_decrypt_margin
+    recall10: float      # gate: recall@10 at least this, ratio@100 <= 1.01
+    corpus_fp: str       # fingerprint(base, queries)
+    sample_fp: str       # JAX's r and omega from the corpus's sample
+
+    @property
+    def code_bits(self) -> int:
+        return 24 * self.m * 2
+
+
+# sample_fp: sha1 (first 12 hex digits) of r and omega [24, m] of the bank
+# the JAX package builds from the point's sample (the first 100,000 rows of
+# its corpus, f16 round trip; its coding module's build_bank_from_sample,
+# JAX 0.9.0 on the CPU of an AVX-512 host), taken on the corpus whose
+# fingerprint is corpus_fp; the port's bank equalled it there bit for bit.
+# The 960-d point is bench_results/bench_r5_gist960d.json's operating_point
+# (m 128: 6,144-bit codes, L 4,000, margin 72); the deep one bench.py at
+# BENCH_N=10000000 BENCH_D=96 (m 64: 3,072 bits, L 2,000, margin 40).
+WIDE = Point(18, "wide", 1_000_000, 960, 128, 4000, 72, 0.95,
+             "8071bc7f0af6", "e47ac591e3b0")
+DEEP = Point(19, "deep", 10_000_000, 96, 64, 2000, 40, 0.98,
+             "332dd4d5e388", "c61d430cb0e0")
+
+
+def point_cfg(pt: Point, **runtime):
+    return slice_cfg(m=pt.m, rerank_limit=pt.limit,
+                     adaptive_decrypt_margin=pt.margin, **runtime)
+
+
+def mem_total_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 2 ** 30
+    return float("nan")
+
+
+def serve_point(dev, pt: Point, work: str) -> dict:
+    """Phases 18 and 19 (unpacked): ``pt``'s corpus built through the facade
+    in the layout ``scan_packed="auto"`` picks, the 1,024 queries served
+    with the point's gates, the served route's ``approx_topk`` launches and
+    the share of the exact top-L it keeps, the kernel against its plain
+    twin on the first batch's products, and that batch's exact route
+    against the native host scan.  Returns what the phase goes on with."""
+    from fspann_tpu_torch.api.system import ForwardSecureANNSystem
+    from fspann_tpu_torch.io import groundtruth, synthetic
+    from fspann_tpu_torch.ops import approx_topk as at
+    from fspann_tpu_torch.ops import hamming_scan as hs
+    from fspann_tpu_torch.ops import native_scan
+
+    label = f"phase {pt.phase}"
+    stale, left = release_earlier_phases()
+    t_phase = time.perf_counter()
+    base, queries = synthetic.lsh_hard_corpus(pt.n, pt.d, Q_SLICE, seed=42)
+    t_corpus = time.perf_counter() - t_phase
+    corpus = fingerprint(base, queries)
+    require(corpus == pt.corpus_fp, f"{label}: the corpus differs from the "
+            f"one the sample bank's fingerprint was taken on: {corpus}")
+    db = os.path.join(work, pt.name)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                   # counts from here are the path's
+    sys_ = ForwardSecureANNSystem(point_cfg(pt), db, pt.d, query_batch=64,
+                                  device=dev)
+    t0 = time.perf_counter()
+    sys_.index_stream(base, batch_size=100_000)
+    t_insert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sys_.finalize_for_search()
+    t_final = time.perf_counter() - t0
+    idx = sys_.index
+    st, bank, n = idx._scan_state, idx.bank, idx._scan_rows
+    stats = fingerprint(bank.r, bank.omega)
+    peak_build = torch.cuda.max_memory_allocated()
+    log(f"{label} {pt.name} point {pt.n}x{pt.d} hard, seed 42, "
+        f"{pt.code_bits}-bit codes (24 groups x m {pt.m} x 2), L={pt.limit}, "
+        f"margin {pt.margin}, f16, host encode, batch 64: corpus "
+        f"{t_corpus:.1f} s (fingerprint {corpus}); earlier phases held "
+        f"{stale / 2**30:.2f} GiB until the cycle collector ran, "
+        f"{left / 2**30:.2f} GiB after; host MemTotal "
+        f"{mem_total_gib():.1f} GiB")
+    log(f"  build {t_insert + t_final:.1f} s (insert {t_insert:.1f} + "
+        f"finalize {t_final:.1f}: "
+        f"{ {k: round(v, 2) for k, v in idx.finalize_sec.items()} }); r and "
+        f"omega {stats}, the JAX package's from this sample {pt.sample_fp}; "
+        f"peak device memory {peak_build / 2**30:.2f} GiB (build)")
+    require(stats == pt.sample_fp, f"{label}: the bank drawn from the sample "
+            "differs from the JAX package's")
+    require(isinstance(st, hs.ScanState), f"{label}: scan_packed='auto' "
+            f"packed {type(st).__name__}, the unpacked bits fit the budget")
+    t0 = time.perf_counter()
+    gtm = groundtruth.precompute(base, queries, k=100, backend="kernel",
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_gt = time.perf_counter() - t0
+    log(f"  GT (kernel) {t_gt:.2f} s")
+    sv = serve_gated(sys_, label, queries, gtm, base, pt.recall10)
+    counts = sv["counts"]
+    # route_batch's branch, from the budget it cached at the warm-up
+    flat_bytes, budget = 64 * n * 12, idx._scan_flat_budget()
+    flat = flat_bytes <= budget
+    per_batch = scan_launches(n, pt.limit, None if flat else 1 << 19)
+    log(f"  scan state {tuple(st.bits.shape)} int8 on {st.bits.device}, "
+        f"{st.bits.numel() / 1e9:.2f} GB (unpacked: scan_packed='auto' keeps "
+        f"the bits under 60% of the free memory); route_batch's branch: "
+        f"{'flat scan' if flat else 'chunked scan'} ([64, {n}] scratch "
+        f"{flat_bytes / 2**30:.2f} GiB against a budget of half the free "
+        f"memory, {budget / 2**30:.2f} GiB), {per_batch} approx_topk "
+        f"launch(es) a batch")
+    require(counts["approx_topk"] == (1 + Q_SLICE // 64) * per_batch,
+            f"{label}: {counts['approx_topk']} approx_topk launches for the "
+            f"warm-up and {Q_SLICE // 64} served batches")
+
+    # the served route: its launches, and the share of the exact top-L
+    # (the same scan with approx=False) that it keeps
+    sh = served_share(idx, label, queries, per_batch)
+    share, exact = sh["share"], sh["exact"]
+    batches = [queries[s:s + 64] for s in range(0, Q_SLICE, 64)]
+
+    # the kernel against its plain twin on the first batch's products
+    cb, rt = idx.cfg.paper.code_bits, idx.cfg.runtime
+    qc0, qk0 = idx.encode_queries(batches[0])
+    qbits = torch.from_numpy(hs.unpack_bits_numpy(qc0, cb)).to(dev)
+    w, r = at.reduction_output_size(n, pt.limit)
+    dots = hs._bit_dots(qbits, st.bits)
+    epi = dict(popc=st.popc, scale=-2, dead=idx._tombstones_scan())
+    bins = at.partial_reduce(dots, w, r, 0, **epi)
+    plain = at.partial_reduce_plain(dots, w, r, 0, **epi)
+    require(torch.equal(bins, plain), f"{label}: approx_topk bins differ "
+            "from the plain twin's")
+    sel, want0 = at.approx_rank_topk(dots, pt.limit, **epi), \
+        at._smallest(plain, pt.limit)
+    for a, b in zip(sel, want0):
+        require(torch.equal(a, b), f"{label}: approx_topk selection differs "
+                "from the plain twin's")
+    del bins, plain, sel, want0
+    rec = time_approx(dots, w, r, **epi)
+    rec["launches"] = counts["approx_topk"]
+    del dots
+
+    # the first batch's exact route against the native host scan
+    os.environ["FSPANN_SCAN_THREADS"] = "auto"
+    try:
+        t0 = time.perf_counter()
+        native = native_scan.scan_topl(
+            idx._scan_codes, qc0, None, pt.limit,
+            anchor=rt.adaptive_decrypt_anchor,
+            margin=rt.adaptive_decrypt_margin,
+            floor=rt.adaptive_decrypt_floor)
+        native_s = time.perf_counter() - t0
+    finally:
+        del os.environ["FSPANN_SCAN_THREADS"]
+    for f in FIELDS:
+        require(np.array_equal(getattr(native, f), exact[0][f]),
+                f"{label}: the exact route vs the native host scan: {f}")
+    served_ms = time_ms(scan_call(idx, batches[0]), reps=5)
+    exact_ms = time_ms(scan_call(idx, batches[0], approx=False), reps=5)
+    call_ms = time_ms(lambda: idx.route_batch(qc0, qk0), reps=5)
+    log(f"  served route: {sh['launches']} approx_topk launches for the "
+        f"{len(batches)} batches; share of the exact top-{pt.limit} kept: "
+        f"mean {share.mean():.6f} min {share.min():.6f} (gate: mean >= "
+        f"{APPROX_SHARE_GATE}); first batch's exact route == the native "
+        f"host scan on every field ({native_s:.2f} s at "
+        f"{os.cpu_count()} threads)")
+    log(f"  approx_topk [64, {n}] -> W={w} bins (r={r}) == plain twin bit "
+        f"for bit (bins and selection): " + approx_line(rec))
+    log(f"  scan of one batch of 64 on inputs on the card: {served_ms:.3f} "
+        f"ms served (approximate), {exact_ms:.3f} ms with approx=False (CUDA "
+        f"events); route_batch from host codes: {call_ms:.3f} ms")
+    codes = idx._scan_codes
+    sys_.shutdown()
+    del sys_, idx, st
+    release_earlier_phases()
+
+    # the L2 top-k at the ground truth's shape, on an otherwise empty card
+    l2 = check_and_time_topk(torch.from_numpy(base).to(dev),
+                             torch.from_numpy(queries).to(dev), 100,
+                             f"  {label}", reps=2)
+    l2["launches"] = counts["l2_topk"]
+    torch.cuda.empty_cache()
+    log(f"  {label} wall {time.perf_counter() - t_phase:.1f} s so far")
+    return {"db": db, "base": base, "queries": queries, "gtm": gtm,
+            "codes": codes, "exact": exact, "peak_serve": sv["peak"],
+            "counts": counts, "approx": rec, "l2": l2, "t_phase": t_phase}
+
+
+def phase_wide(dev, work) -> tuple[dict, dict]:
+    """Phase 18: the 960-d point (6,144-bit codes, L 4,000)."""
+    p = serve_point(dev, WIDE, work)
+    shutil.rmtree(p["db"], ignore_errors=True)
+    return p["counts"], {"l2": p["l2"], "approx": p["approx"]}
+
+
+def phase_deep_packed(dev, pt: Point, p: dict) -> dict:
+    """Phase 19, packed: the deep point's store restored into
+    ``scan_packed="on"`` at capacity ``n + 65,536`` and served as
+    ``serve_packed`` holds it; then one ``insert_live`` of 16,384 rows in
+    place, found by a self search.  Returns the path's kernel counts: the
+    served pass's and the insert's with its self search."""
+    from fspann_tpu_torch.io import synthetic
+
+    label = f"phase {pt.phase}"
+    cap = pt.n + 65_536
+    sys_, served = serve_packed(
+        dev, label, point_cfg(pt, scan_packed="on", scan_capacity_rows=cap),
+        p["db"], pt.d, pt.n, p["codes"], p["base"], p["queries"], p["gtm"],
+        pt.recall10, p)
+    idx = sys_.index
+
+    extra, _ = synthetic.lsh_hard_corpus(16_384, pt.d, 1, seed=43)
+    new_ids = pt.n + np.arange(len(extra), dtype=np.int64)
+    ptr = idx._scan_state.words.data_ptr()
+    reset_launches()                   # the insert path's own counts
+    t0 = time.perf_counter()
+    sys_.insert_live(new_ids, extra)
+    torch.cuda.synchronize()
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    require(idx._scan_state.words.data_ptr() == ptr
+            and idx._scan_rows == cap, f"{label}: insert_live moved the words")
+    pick = np.random.default_rng(5).choice(len(extra), 64, replace=False)
+    found = serve(sys_, extra[pick], k=10)[0]
+    inserted = read_launches()
+    require((found[:, 0] == new_ids[pick]).all(), f"{label}: appended rows "
+            "not first in their own search")
+    sys_.shutdown()
+    log(f"  packed: insert_live of {len(extra)} rows in place "
+        f"{insert_ms:.1f} ms (words storage kept), 64 of them found first "
+        f"by their own search; kernel launches of the insert and its search "
+        f"{inserted}")
+    return {k: v + inserted[k] for k, v in served.items()}
+
+
+def phase_deep(dev, work) -> tuple[dict, dict]:
+    """Phase 19: the 10M x 96 point, unpacked then packed."""
+    p = serve_point(dev, DEEP, work)
+    packed = phase_deep_packed(dev, DEEP, p)
+    p["approx"]["packed_launches"] = packed["approx_topk"]
+    shutil.rmtree(p["db"], ignore_errors=True)
+    log(f"  phase {DEEP.phase} wall {time.perf_counter() - p['t_phase']:.1f}"
+        " s")
+    counts = {k: v + packed[k] for k, v in p["counts"].items()}
+    return counts, {"l2": p["l2"], "approx": p["approx"]}
+
+
 # (script, the line its gate prints); a recall gate is the example's own
 EXAMPLES = [("torch_plaintext_ann.py", "recall@10: "),
             ("torch_encrypted_e2e.py", "recall@10: "),
@@ -2407,13 +2747,17 @@ def main() -> int:
         multi_counts = phase_multislot(base, queries, work, {
             **p13, "facade": p14, "bank": p5["bank"]})
         del base, queries, ref, p5, p13, p14
+        wide_counts, p18 = phase_wide(dev, work)
+        deep_counts, p19 = phase_deep(dev, work)
         release_earlier_phases()
         phase_examples()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = (scan_counts, approx_counts, probe_counts, life_counts,
-             cli_counts, shard_counts, mesh_counts, multi_counts)
+             cli_counts, shard_counts, mesh_counts, multi_counts,
+             wide_counts, deep_counts)
     l2_launches = sum(c["l2_topk"] for c in paths)
+    points = {f"{pt.n}x{pt.d}": p for pt, p in ((WIDE, p18), (DEEP, p19))}
     require(shard_counts["code_hamming"] > 0, "the sharded probe route did "
             "not run code_hamming")
     require(shard_counts["approx_topk"] > 0, "the sharded approx scan did "
@@ -2428,7 +2772,7 @@ def main() -> int:
         "source": "fspann_tpu_torch/csrc/l2_topk.cu",
         "replaces": "fspann_tpu/ops/pallas_topk.py:106",
         "launches": l2_launches,
-        **rec}, {
+        **rec, "points": {k: p["l2"] for k, p in points.items()}}, {
         "name": "code_hamming", "route": "cuda",
         "source": "fspann_tpu_torch/csrc/code_hamming.cu",
         "replaces": "fspann_tpu/ops/routing.py:281",
@@ -2439,7 +2783,9 @@ def main() -> int:
         "replaces": "fspann_tpu/ops/hamming_scan.py:212",
         "launches": sum(c["approx_topk"] for c in paths),
         "tail_launches": sum(c["approx_topk_tail"] for c in paths),
-        **approx_rec}]}), flush=True)
+        **approx_rec,
+        "points": {k: p["approx"] for k, p in points.items()}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -40,8 +40,15 @@
 //   split as it leaves shared memory into hi (x rounded to TF32) and lo =
 //   x - hi, and q.b = lo.hi + hi.lo + hi.hi (the lo.lo term is below
 //   float32's rounding).  One TF32 pass alone keeps about three digits and
-//   would flip ground-truth ids that are not ties.  |b|^2 is an exact
-//   float32 sum of the same staged chunks (threads 0..127, one row each).
+//   would flip ground-truth ids that are not ties.  Each k-step's three
+//   products go into fresh accumulators, which float32 adds (rounding to
+//   nearest) then fold into the running sums: the tensor cores' own
+//   accumulation truncates, so a running accumulator carried through all
+//   d / 8 k-steps drifts toward zero, by about 1e-5 of |q|^2 + |b|^2 at d =
+//   960 on clustered data (the 1M x 960 point, chip_smoke.py phase 18), past
+//   F32_ERROR_LIMIT; with the adds the drift is that of 3 k-steps, and the
+//   adds' own errors do not pile up one way.  |b|^2 is an exact float32
+//   sum of the same staged chunks (threads 0..127, one row each).
 //   Defining FSPANN_L2_TOPK_ONE_TF32_PASS keeps hi.hi alone: the control
 //   that scripts/torch_l2_topk_precision.py builds to set the precision
 //   limit that chip_smoke.py and the tests hold this kernel to.
@@ -397,11 +404,17 @@ l2_topk_partial(const float* __restrict__ base,
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
+          // this k-step's products, added to the running sums by float32
+          // adds (the design note: the tensor cores' own accumulation
+          // truncates)
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
 #ifndef FSPANN_L2_TOPK_ONE_TF32_PASS
-          mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-          mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+          mma_tf32(part, al[mt], bh[nt]);
+          mma_tf32(part, ah[mt], bl[nt]);
 #endif
-          mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+          mma_tf32(part, ah[mt], bh[nt]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
         }
     }
 

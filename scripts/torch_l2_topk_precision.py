@@ -10,7 +10,7 @@ shape it prints, for both builds and the plain float32 twin
 (``ops/refine.bruteforce_topk``), ``ops/l2_topk.float64_error`` (the
 largest |dist^2 - d64^2| / (|q|^2 + |b|^2) over the returned pairs) and the
 ids that differ from the plain twin's at distances that are not tied; at
-the three shapes of chip_smoke.py it also times both builds in turns
+the four shapes of chip_smoke.py it also times both builds in turns
 (shipped, variant, variant, shipped; CUDA events).  With the one-pass
 control it exits 1 unless ``ops/l2_topk.F32_ERROR_LIMIT`` lies between the
 shipped kernel's largest reading and the control's smallest.  The other
@@ -81,8 +81,10 @@ def shapes():
         yield (f"phase 3 262144x{d} 256q",
                rng.standard_normal((262_144, d), dtype=np.float32),
                rng.standard_normal((256, d), dtype=np.float32), 100, True)
-    base, queries = synthetic.lsh_hard_corpus(1_000_000, 128, 1024, seed=42)
-    yield "phase 5 1Mx128 hard 1024q", base, queries, 100, True
+    for d, phase in ((128, 5), (960, 18)):
+        base, queries = synthetic.lsh_hard_corpus(1_000_000, d, 1024, seed=42)
+        yield f"phase {phase} 1Mx{d} hard 1024q", base, queries, 100, True
+        del base, queries
     for n, d, q, k in [(700, 12, 1, 1), (5000, 100, 63, 100),
                        (20_001, 960, 65, 128), (130_001, 128, 129, 100),
                        (3001, 13, 64, 10)]:   # the cuda tests' edges

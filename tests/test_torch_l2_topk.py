@@ -281,6 +281,32 @@ def test_l2_topk_cuda_kernel_every_row_admitted(n, q, k):
     assert (ids.cpu().numpy()[:, 0] == rows - 1).all()
 
 
+def _wide_rows(kind):
+    """Rows of d = 960 whose products pile up one way: 100,000 rows of the
+    clustered corpus (the 960-d point's generator), or coordinates near 1
+    (every product positive)."""
+    if kind == "clustered":
+        from fspann_tpu_torch.io import synthetic
+        return synthetic.lsh_hard_corpus(100_000, 960, 64, seed=42)
+    rng = np.random.default_rng(9)
+    return tuple((1 + 0.01 * rng.normal(size=(n, 960))).astype(np.float32)
+                 for n in (20_000, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clustered", "positive"])
+def test_l2_topk_cuda_float32_accurate_where_products_pile_up(kind):
+    """A running tensor-core accumulator carried through all 120 k-steps of
+    d = 960 truncates its way past F32_ERROR_LIMIT on such rows (1M x 960,
+    chip_smoke.py phase 18: 9.5e-6); each k-step's products summed apart
+    and added in float32 stay within it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    base, queries = (_t(x).cuda() for x in _wide_rows(kind))
+    ids, dist = l2.l2_topk(base, queries, 100)
+    assert l2.float64_error(base, queries, ids, dist) <= l2.F32_ERROR_LIMIT
+
+
 @pytest.mark.cuda
 def test_l2_topk_cuda_resident_blocks():
     """The launch geometry assumes ``RESIDENT`` blocks of pass 1 per SM."""
