@@ -1,0 +1,8 @@
+"""Stage A of the scan route against its least time (batch requests),
+in % (bench_torch/roofline.scan_bound_s)."""
+
+from bench_torch.readers import scan_roofline
+
+
+def read(run):
+    return scan_roofline(run, "batch")
