@@ -1,0 +1,8 @@
+"""Mean ``SearchStats.open_ns`` per query (batch requests): the store's
+C AES-GCM open (and fused score) alone, in ms."""
+
+from bench_torch.program_spans import mean_field
+
+
+def read(run):
+    return mean_field(run, "batch", "open_ns")

@@ -37,7 +37,7 @@ from ..store.point_store import PointStore
 from ..types import QueryToken
 from ..utils.cache import ExpiringCache
 from ..utils.metrics import MetricsRegistry
-from ..utils.profiler import Profiler
+from ..utils.profiler import Profiler, span
 from ..utils.storage_metrics import StorageMetrics
 
 
@@ -134,14 +134,15 @@ class ForwardSecureANNSystem:
         routing_mode='scan': the new code bits append to the device bit
         matrix; ciphertexts persist through the normal encrypted path and
         key rotation covers them like any other point."""
-        ids = np.asarray(ids, np.int64)
-        self.rotation.rotate_if_needed()
-        vecs, parts = self.store.quantize_parts(vecs)
-        with self.profiler.timed("insert_live"):
-            self.index.append_rows(ids, vecs)   # validates first
-            self.store.insert_batch(ids, vecs, prequant=parts)
-        self.rotation.track_operations(len(ids))
-        self._cache_gen += 1
+        with span("system.insert_live"):
+            ids = np.asarray(ids, np.int64)
+            self.rotation.rotate_if_needed()
+            vecs, parts = self.store.quantize_parts(vecs)
+            with self.profiler.timed("insert_live"):
+                self.index.append_rows(ids, vecs)   # validates first
+                self.store.insert_batch(ids, vecs, prequant=parts)
+            self.rotation.track_operations(len(ids))
+            self._cache_gen += 1
 
     def finalize_for_search(self) -> None:
         self.insert_buffer.flush()
@@ -197,20 +198,22 @@ class ForwardSecureANNSystem:
         return cur, new
 
     def search(self, token: QueryToken):
-        if self.background:
-            self.background.note_query()
-        # keyed by the query digest (plaintext identity), NOT the LSH codes —
-        # distinct nearby queries share codes by design and must not alias
-        cache_key = (self._cache_gen, token.cache_key, token.top_k)
-        hit = self.query_cache.get(cache_key)
-        if hit is not None:
-            self.metrics.count("query.cache_hits")
-            return hit
-        with self.metrics.timer("query.search_ms"):
-            out = self.query_service.search(token)
-        self.query_cache.put(cache_key, out)
-        self.metrics.count("query.searches")
-        return out
+        with span("system.search"):
+            if self.background:
+                self.background.note_query()
+            # keyed by the query digest (plaintext identity), NOT the LSH
+            # codes — distinct nearby queries share codes by design and must
+            # not alias
+            cache_key = (self._cache_gen, token.cache_key, token.top_k)
+            hit = self.query_cache.get(cache_key)
+            if hit is not None:
+                self.metrics.count("query.cache_hits")
+                return hit
+            with self.metrics.timer("query.search_ms"):
+                out = self.query_service.search(token)
+            self.query_cache.put(cache_key, out)
+            self.metrics.count("query.searches")
+            return out
 
     def run_queries(self, queries: np.ndarray,
                     gtm: GroundtruthManager | None = None,

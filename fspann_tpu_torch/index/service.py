@@ -42,6 +42,8 @@ from .. import resolve_device
 from ..config import SystemConfig
 from ..ops import coding, hamming_scan, native_scan, partition, routing
 from ..ops.partition import PartitionTable
+from ..utils import profiler
+from ..utils.profiler import span
 
 
 class IndexNotFinalized(RuntimeError):
@@ -359,53 +361,61 @@ class PartitionedIndex:
         if rt.routing_mode != "scan" \
                 or (self._scan_state is None and self._scan_codes is None):
             raise RuntimeError("live insert requires routing_mode='scan'")
-        ids = np.asarray(ids, np.int64)
-        vecs = np.asarray(vecs, np.float32)
-        if vecs.ndim != 2 or vecs.shape[1] != self.dim:
-            raise ValueError(f"expected [*, {self.dim}] vectors")
-        if len(ids) != len(vecs) or (ids < 0).any():
-            raise ValueError("bad ids")
-        if np.isin(ids, self._row_ids).any():
-            raise ValueError("append_rows ids collide with existing rows")
-        if not np.isfinite(vecs).all():
-            raise ValueError("vectors contain NaN/Inf")
+        with span("index.append.check"):
+            ids = np.asarray(ids, np.int64)
+            vecs = np.asarray(vecs, np.float32)
+            if vecs.ndim != 2 or vecs.shape[1] != self.dim:
+                raise ValueError(f"expected [*, {self.dim}] vectors")
+            if len(ids) != len(vecs) or (ids < 0).any():
+                raise ValueError("bad ids")
+            if np.isin(ids, self._row_ids).any():
+                raise ValueError("append_rows ids collide with existing rows")
+            if not np.isfinite(vecs).all():
+                raise ValueError("vectors contain NaN/Inf")
 
-        codes, _ = self._encode(vecs)
+        with span("index.append.encode"):
+            codes, _ = self._encode(vecs)
         st = self._scan_state
         if st is not None:
-            packed = isinstance(st, hamming_scan.PackedScanState)
-            new_bits = hamming_scan.unpack_bits_numpy(
-                codes, self.cfg.paper.code_bits)
-            new_popc = torch.from_numpy(
-                new_bits.sum(axis=1, dtype=np.int32)).to(self.device)
-            body = coding.words_to_torch(codes, self.device) if packed \
-                else torch.from_numpy(new_bits).to(self.device)
-            rows = st.words if packed else st.bits
-            lo = self._n_rows
-            if lo + len(ids) > self._scan_rows:
-                # out of capacity padding: grow on the device — old rows,
-                # the new rows, then fresh zero padding with geometric
-                # headroom (amortised O(1) over an insert stream; only the
-                # new rows cross the host link).  Exact-fit builds
-                # (scan_capacity_rows == 0) grow exactly.
-                grow = 0 if rt.scan_capacity_rows == 0 \
-                    else max(self._scan_rows // 8, 4096)
-                rows = torch.cat([rows[:lo], body,
-                                  body.new_zeros((grow,) + body.shape[1:])])
-                popc = torch.cat([st.popc[:lo], new_popc,
-                                  new_popc.new_zeros(grow)])
-                self._scan_rows = lo + len(ids) + grow
-                self._tombstones_scan_dev = None
-                self._scan_budget_cache = None   # free memory changed
-            else:
-                # in-place fill of the tombstoned capacity padding: the
-                # state keeps its storage and shape
-                rows = hamming_scan.update_rows(rows, body, lo)
-                popc = hamming_scan.update_rows(st.popc, new_popc, lo)
-            self._scan_state = type(st)(rows, popc)
-        # native-only serving: the packed codes ARE the scan state
-        self._scan_codes = np.concatenate([self._scan_codes, codes])
-        self._row_ids = np.concatenate([self._row_ids, ids])
+            with span("index.append.device"):
+                packed = isinstance(st, hamming_scan.PackedScanState)
+                new_bits = hamming_scan.unpack_bits_numpy(
+                    codes, self.cfg.paper.code_bits)
+                new_popc = torch.from_numpy(
+                    new_bits.sum(axis=1, dtype=np.int32)).to(self.device)
+                body = coding.words_to_torch(codes, self.device) if packed \
+                    else torch.from_numpy(new_bits).to(self.device)
+                rows = st.words if packed else st.bits
+                lo = self._n_rows
+                if lo + len(ids) > self._scan_rows:
+                    # out of capacity padding: grow on the device — old
+                    # rows, the new rows, then fresh zero padding with
+                    # geometric headroom (amortised O(1) over an insert
+                    # stream; only the new rows cross the host link).
+                    # Exact-fit builds (scan_capacity_rows == 0) grow
+                    # exactly.
+                    grow = 0 if rt.scan_capacity_rows == 0 \
+                        else max(self._scan_rows // 8, 4096)
+                    rows = torch.cat([rows[:lo], body,
+                                      body.new_zeros((grow,)
+                                                     + body.shape[1:])])
+                    popc = torch.cat([st.popc[:lo], new_popc,
+                                      new_popc.new_zeros(grow)])
+                    profiler.count("index.append.grow_bytes",
+                                   rows.nbytes + popc.nbytes)
+                    self._scan_rows = lo + len(ids) + grow
+                    self._tombstones_scan_dev = None
+                    self._scan_budget_cache = None   # free memory changed
+                else:
+                    # in-place fill of the tombstoned capacity padding: the
+                    # state keeps its storage and shape
+                    rows = hamming_scan.update_rows(rows, body, lo)
+                    popc = hamming_scan.update_rows(st.popc, new_popc, lo)
+                self._scan_state = type(st)(rows, popc)
+        with span("index.append.host_copy"):
+            # native-only serving: the packed codes ARE the scan state
+            self._scan_codes = np.concatenate([self._scan_codes, codes])
+            self._row_ids = np.concatenate([self._row_ids, ids])
         self._dense = bool(self._dense and len(ids)
                            and ids[0] == self._n_rows
                            and np.array_equal(
@@ -424,28 +434,30 @@ class PartitionedIndex:
     def _tombstones_host(self) -> np.ndarray:
         """bool [N] dead mask, host-resident (native scan path)."""
         if self._tombstones_dirty or self._tombstones_np is None:
-            t = np.zeros(self._n_rows, bool)
-            if self._deleted:
-                if self._dense:
-                    dead = np.fromiter(
-                        (i for i in self._deleted if i < self._n_rows),
-                        np.int64)
-                    t[dead] = True
-                else:
-                    mask = np.isin(self._row_ids,
-                                   np.fromiter(self._deleted, np.int64))
-                    t[mask] = True
-            self._tombstones_np = t
-            self._tombstones_dev = None
-            self._tombstones_scan_dev = None
-            self._tombstones_dirty = False
+            with span("index.tombstones"):
+                t = np.zeros(self._n_rows, bool)
+                if self._deleted:
+                    if self._dense:
+                        dead = np.fromiter(
+                            (i for i in self._deleted if i < self._n_rows),
+                            np.int64)
+                        t[dead] = True
+                    else:
+                        mask = np.isin(self._row_ids,
+                                       np.fromiter(self._deleted, np.int64))
+                        t[mask] = True
+                self._tombstones_np = t
+                self._tombstones_dev = None
+                self._tombstones_scan_dev = None
+                self._tombstones_dirty = False
         return self._tombstones_np
 
     def _tombstones(self) -> torch.Tensor:
         """bool [N] dead mask on the index device."""
         host = self._tombstones_host()
         if self._tombstones_dev is None:
-            self._tombstones_dev = torch.from_numpy(host).to(self.device)
+            with span("index.tombstones"):
+                self._tombstones_dev = torch.from_numpy(host).to(self.device)
         return self._tombstones_dev
 
     def _tombstones_scan(self) -> torch.Tensor:
@@ -455,9 +467,11 @@ class PartitionedIndex:
         if self._scan_rows <= len(host):
             return self._tombstones()
         if self._tombstones_scan_dev is None:
-            t = np.ones(self._scan_rows, bool)
-            t[:len(host)] = host
-            self._tombstones_scan_dev = torch.from_numpy(t).to(self.device)
+            with span("index.tombstones"):
+                t = np.ones(self._scan_rows, bool)
+                t[:len(host)] = host
+                self._tombstones_scan_dev = torch.from_numpy(t).to(
+                    self.device)
         return self._tombstones_scan_dev
 
     # -- query ------------------------------------------------------------------------
@@ -495,10 +509,11 @@ class PartitionedIndex:
             if self._use_native_scan():
                 # the native host kernel streams the packed words once;
                 # bit-identical to the device scan, as numpy arrays
-                res = native_scan.scan_topl(
-                    self._scan_codes, self._host_words(qcodes),
-                    self._tombstones_host() if self._deleted else None,
-                    scan_l, **adaptive)
+                dead = self._tombstones_host() if self._deleted else None
+                with span("index.scan"):
+                    res = native_scan.scan_topl(
+                        self._scan_codes, self._host_words(qcodes), dead,
+                        scan_l, **adaptive)
                 return self._map_external(res)
             if self._scan_state is None:
                 raise RuntimeError(
@@ -506,15 +521,18 @@ class PartitionedIndex:
                     "(scan_native) but the native backend is now "
                     "unavailable — rebuild or restore with scan_native"
                     "='off'")
-            qbits = torch.from_numpy(hamming_scan.unpack_bits_numpy(
-                self._host_words(qcodes), self.cfg.paper.code_bits)
-            ).to(self.device)
+            with span("index.query_bits"):
+                qbits = torch.from_numpy(hamming_scan.unpack_bits_numpy(
+                    self._host_words(qcodes), self.cfg.paper.code_bits)
+                ).to(self.device)
+            dead = self._tombstones_scan()
             if isinstance(self._scan_state, hamming_scan.PackedScanState):
                 # the packed state always goes through the chunked scan
                 # (the per-chunk device unpack is the point of packing)
-                res = hamming_scan.scan_chunked(
-                    self._scan_state, qbits, self._tombstones_scan(), scan_l,
-                    code_bits=self.cfg.paper.code_bits, **adaptive)
+                with span("index.scan"):
+                    res = hamming_scan.scan_chunked(
+                        self._scan_state, qbits, dead, scan_l,
+                        code_bits=self.cfg.paper.code_bits, **adaptive)
             else:
                 # when the [Q, N] rank scratch outgrows the device budget,
                 # switch to the chunked running-top-L variant
@@ -522,28 +540,32 @@ class PartitionedIndex:
                 scan_fn = hamming_scan.scan \
                     if flat_bytes <= self._scan_flat_budget() \
                     else hamming_scan.scan_chunked
-                res = scan_fn(self._scan_state, qbits,
-                              self._tombstones_scan(), scan_l, **adaptive)
+                with span("index.scan"):
+                    res = scan_fn(self._scan_state, qbits, dead, scan_l,
+                                  **adaptive)
         elif self._table_stale:
             raise RuntimeError(
                 "partition table stale after live inserts — probe routing "
                 "needs a rebuild; serve with routing_mode='scan'")
         else:
-            qc = coding.words_to_torch(self._host_words(qcodes), self.device)
-            qk = torch.as_tensor(qkeys if isinstance(qkeys, torch.Tensor)
-                                 else np.asarray(qkeys, np.int64),
-                                 dtype=torch.int64).to(self.device)
-            if self.point_codes is not None and rt.rerank_limit > 0:
-                # fused probe → dedup → fine score → top-k (the candidate
-                # pool is the full probed set; the decrypt set is the best
-                # rerank_limit by exact code Hamming)
-                res = routing.route_rerank(self.table, qc, qk,
-                                           self._tombstones(),
-                                           self.point_codes, probes,
-                                           rt.rerank_limit)
-            else:
-                res = routing.route(self.table, qc, qk, self._tombstones(),
-                                    probes, limit)
+            with span("index.query_bits"):
+                qc = coding.words_to_torch(self._host_words(qcodes),
+                                           self.device)
+                qk = torch.as_tensor(qkeys if isinstance(qkeys, torch.Tensor)
+                                     else np.asarray(qkeys, np.int64),
+                                     dtype=torch.int64).to(self.device)
+            dead = self._tombstones()
+            with span("index.route"):
+                if self.point_codes is not None and rt.rerank_limit > 0:
+                    # fused probe → dedup → fine score → top-k (the
+                    # candidate pool is the full probed set; the decrypt
+                    # set is the best rerank_limit by exact code Hamming)
+                    res = routing.route_rerank(self.table, qc, qk, dead,
+                                               self.point_codes, probes,
+                                               rt.rerank_limit)
+                else:
+                    res = routing.route(self.table, qc, qk, dead, probes,
+                                        limit)
         return self._map_external(res)
 
     @staticmethod

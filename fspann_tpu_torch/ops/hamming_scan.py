@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from .approx_topk import _DEAD, _rank_topk, approx_rank_topk
 from .coding import words_to_torch
 from .routing import _INF, RouteResult
@@ -249,9 +250,12 @@ def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
     """
     n = state.bits.shape[0]
     k = min(limit, n)
-    sc, idx = _select(_bit_dots(qbits, state.bits), state.popc, tombstones,
-                      k, 0, approx)
-    return _finish(sc, idx, qbits, n, anchor, margin, floor, k)
+    with span("scan.products"):
+        dots = _bit_dots(qbits, state.bits)
+    with span("scan.select"):
+        sc, idx = _select(dots, state.popc, tombstones, k, 0, approx)
+    with span("scan.finish"):
+        return _finish(sc, idx, qbits, n, anchor, margin, floor, k)
 
 
 def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,

@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _torch_profiler
 
 from ..config import SystemConfig
 from ..crypto.keys import KeyManager
@@ -37,6 +38,7 @@ from ..index.service import PartitionedIndex
 from ..ops import refine as refine_ops
 from ..store.point_store import PointStore
 from ..types import QueryResult, QueryToken, SearchStats
+from ..utils.profiler import span
 
 
 class StaleTokenError(ValueError):
@@ -209,7 +211,8 @@ class QueryService:
 
     def search(self, token: QueryToken) -> list[QueryResult]:
         batch = self.search_batch([token])
-        return batch.results(0)
+        with span("query.results"):
+            return batch.results(0)
 
     def search_batch(self, tokens: list[QueryToken]) -> BatchSearchResult:
         if not tokens:
@@ -235,36 +238,42 @@ class QueryService:
         results: list[BatchSearchResult] = []
         pending = None
         prev_end: float | None = None
-        for tokens in list(batches) + [None]:
-            current = None
-            if tokens:
-                t_start = time.perf_counter()
-                qvecs = self._decrypt_queries(tokens)
-                # limit=None lets the index pick the per-mode default
-                # (refinement_limit for probe, effective_refinement for scan)
-                routed = self._dispatch_route(tokens, rt.effective_probes(),
-                                              None)
-                current = (tokens, qvecs, routed, t_start)
-            if pending is not None:
-                res = self._finish_batch(*pending)
-                end = time.perf_counter()
-                start = pending[3] if prev_end is None \
-                    else max(pending[3], prev_end)
-                per_q_ns = int((end - start) * 1e9 / max(len(res.stats), 1))
-                for s in res.stats:
-                    s.server_ns = per_q_ns
-                prev_end = end
-                results.append(res)
-            pending = current
+        with span("query.search_batches"):
+            for tokens in list(batches) + [None]:
+                current = None
+                if tokens:
+                    t_start = time.perf_counter()
+                    with span("query.token_open") as opened:
+                        qvecs = self._decrypt_queries(tokens)
+                    # limit=None lets the index pick the per-mode default
+                    # (refinement_limit for probe, effective_refinement for
+                    # scan)
+                    routed = self._dispatch_route(
+                        tokens, rt.effective_probes(), None)
+                    current = (tokens, qvecs, routed, t_start, opened.ns)
+                if pending is not None:
+                    res = self._finish_batch(*pending)
+                    end = time.perf_counter()
+                    start = pending[3] if prev_end is None \
+                        else max(pending[3], prev_end)
+                    per_q_ns = int((end - start) * 1e9
+                                   / max(len(res.stats), 1))
+                    for s in res.stats:
+                        s.server_ns = per_q_ns
+                    prev_end = end
+                    results.append(res)
+                pending = current
         return results
 
-    def _finish_batch(self, tokens, qvecs, routed, t_start
+    def _finish_batch(self, tokens, qvecs, routed, t_start, token_open_ns
                       ) -> BatchSearchResult:
         k = max(t.top_k for t in tokens)
         rt = self.cfg.runtime
         touched_parts: list[np.ndarray] = []
         ids, dists, stats = self._consume_pass(tokens, qvecs, routed, k,
                                                touched_parts, t_start)
+        for s in stats:
+            s.token_open_ns = token_open_ns // len(tokens)
 
         # Adaptive retry (once) for underfilled queries — synchronous, rare.
         # Probe mode widens probes (reference probeOverride=10 escalation);
@@ -283,17 +292,19 @@ class QueryService:
             do_retry = bool(need) and \
                 rt.retry_probes > rt.effective_probes()
         if do_retry:
-            sub_tokens = [tokens[qi] for qi in need]
-            sub_q = qvecs[need]
-            t_retry = time.perf_counter()
-            routed2 = self._dispatch_route(sub_tokens, retry_probes,
-                                           retry_limit)
-            rids, rdists, rstats = self._consume_pass(
-                sub_tokens, sub_q, routed2, k, touched_parts, t_retry)
-            for j, qi in enumerate(need):
-                ids[qi], dists[qi] = rids[j], rdists[j]
-                rstats[j].retried = True
-                stats[qi] = rstats[j]
+            with span("query.retry"):
+                sub_tokens = [tokens[qi] for qi in need]
+                sub_q = qvecs[need]
+                t_retry = time.perf_counter()
+                routed2 = self._dispatch_route(sub_tokens, retry_probes,
+                                               retry_limit)
+                rids, rdists, rstats = self._consume_pass(
+                    sub_tokens, sub_q, routed2, k, touched_parts, t_retry)
+                for j, qi in enumerate(need):
+                    ids[qi], dists[qi] = rids[j], rdists[j]
+                    rstats[j].retried = True
+                    _charge_first_pass(rstats[j], stats[qi])
+                    stats[qi] = rstats[j]
 
         if touched_parts and (self.tracker is not None
                               or self.on_touched is not None):
@@ -301,11 +312,14 @@ class QueryService:
             # QueryServiceImpl.java:263 adds each scored id, recorded in the
             # finally block :342-351) — the selective re-encryption set, not
             # merely the returned top-K
-            touched = np.unique(np.concatenate(touched_parts))
-            if self.tracker is not None:
-                self.tracker.record(touched)
-            if self.on_touched is not None:
-                self.on_touched(touched)
+            with span("query.track") as tracked:
+                touched = np.unique(np.concatenate(touched_parts))
+                if self.tracker is not None:
+                    self.tracker.record(touched)
+                if self.on_touched is not None:
+                    self.on_touched(touched)
+            for s in stats:
+                s.track_ns = tracked.ns // len(stats)
         self.last_stats = stats
         return BatchSearchResult(ids, dists, stats)
 
@@ -379,7 +393,7 @@ class QueryService:
 
     def _dispatch_route(self, tokens, probes, limit):
         """Stage A dispatch — returns (routed, copies, width, dispatch_ns,
-        packed).  On a CUDA scan device this only enqueues work (the
+        packed, events).  On a CUDA scan device this only enqueues work (the
         pipeline overlaps it with the previous batch's host AES); on the CPU
         the scan computes synchronously here and dispatch_ns — charged to
         the route stage — carries its true cost.  ``copies`` holds the
@@ -391,109 +405,162 @@ class QueryService:
         # unpacks them on the host anyway
         qc = np.stack([t.codes for t in tokens])
         qk = np.stack([t.keys for t in tokens])
-        t0 = time.perf_counter()
-        routed = self.index.route_batch(qc, qk, probes, limit)
-        dispatch_ns = int((time.perf_counter() - t0) * 1e9)
-        r_full = routed.ids.shape[1]
-        pred = self._slice_pred
-        if pred is not None and pred < 0.7 * r_full:
-            ids_slice, width = routed.ids[:, :pred], pred
-        else:
-            ids_slice, width = routed.ids, r_full
-        # 24-bit transfer packing: tensors only (the native path already
-        # holds numpy), and the ids must fit the encode
-        packed = (isinstance(ids_slice, torch.Tensor)
-                  and _pack_transfer_enabled(ids_slice.device)
-                  and 0 <= self.index.max_route_id() <= _PACK24_MAX)
-        if packed:
-            ids_slice = _pack24(ids_slice)
-        copies = _HostCopy((ids_slice, routed.n_unique, routed.n_raw,
-                            routed.n_dec))
-        return routed, copies, width, dispatch_ns, packed
+        # stage A's time on the card, between two events on the current
+        # stream, only while a torch.profiler records: read after the
+        # copies have landed, so they cost no synchronisation
+        events = None
+        if _torch_profiler._is_profiler_enabled \
+                and self.index.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.index.device)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
+        with span("query.dispatch") as dispatched:
+            routed = self.index.route_batch(qc, qk, probes, limit)
+        if events is not None:
+            events[1].record(stream)
+        dispatch_ns = dispatched.ns
+        # the ranked ids cut to the predicted width, packed, and their copy
+        # (and the counters') to the host started
+        with span("query.copy_start"):
+            r_full = routed.ids.shape[1]
+            pred = self._slice_pred
+            if pred is not None and pred < 0.7 * r_full:
+                ids_slice, width = routed.ids[:, :pred], pred
+            else:
+                ids_slice, width = routed.ids, r_full
+            # 24-bit transfer packing: tensors only (the native path already
+            # holds numpy), and the ids must fit the encode
+            packed = (isinstance(ids_slice, torch.Tensor)
+                      and _pack_transfer_enabled(ids_slice.device)
+                      and 0 <= self.index.max_route_id() <= _PACK24_MAX)
+            if packed:
+                ids_slice = _pack24(ids_slice)
+            copies = _HostCopy((ids_slice, routed.n_unique, routed.n_raw,
+                                routed.n_dec))
+        return routed, copies, width, dispatch_ns, packed, events
 
     def _consume_pass(self, tokens, qvecs, dispatched, k, touched_parts,
                       t_start):
-        routed, copies, pred, dispatch_ns, packed = dispatched
+        routed, copies, pred, dispatch_ns, packed, events = dispatched
         # stage attribution: route_ns counts only the time THIS thread spends
         # blocked on the device result — pipeline overlap (the previous
         # batch's host work ran between dispatch and here) is not charged
-        t_wait = time.perf_counter()
-        # Wait for the copies started at dispatch: the per-query counters
-        # and the ranked ids at the PREDICTED live width.  Ids are sorted
-        # best-first with pads at the end, so the first max(n_unique)
-        # columns carry every live candidate.  On a mispredict (need > pred)
-        # fall back to the full matrix — correctness never depends on the
-        # prediction.
-        ids_slice, n_unique, n_raw, n_dec = copies.get()
-        r_full = routed.ids.shape[1]
-        # adaptive decrypt budget: only the first n_dec[q] ranked ids are
-        # score-competitive — slice/transfer to the batch max and mask the
-        # per-query tail so the AES loop never touches it
-        width = n_unique if n_dec is None else n_dec
-        need = max(int(width.max(initial=1)), k, 1)
-        if need <= pred:
-            cand_ids = _unpack24(ids_slice) if packed else ids_slice
-        else:   # mispredict: fall back to the full (unpacked) matrix
-            cand_ids = _host(routed.ids)
-        self._slice_pred = min(max(256, 1 << (need - 1).bit_length()), r_full)
-        if n_dec is not None:
-            cand_ids = np.where(
-                np.arange(cand_ids.shape[1])[None, :] < n_dec[:, None],
-                cand_ids, -1)
-        t1 = time.perf_counter()
+        with span("query.wait") as waited:
+            # Wait for the copies started at dispatch: the per-query
+            # counters and the ranked ids at the PREDICTED live width.  Ids
+            # are sorted best-first with pads at the end, so the first
+            # max(n_unique) columns carry every live candidate.  On a
+            # mispredict (need > pred) fall back to the full matrix —
+            # correctness never depends on the prediction.
+            ids_slice, n_unique, n_raw, n_dec = copies.get()
+            device_ns = None if events is None else \
+                int(events[0].elapsed_time(events[1]) * 1e6)
+            with span("query.ids"):
+                r_full = routed.ids.shape[1]
+                # adaptive decrypt budget: only the first n_dec[q] ranked
+                # ids are score-competitive — slice/transfer to the batch
+                # max and mask the per-query tail so the AES loop never
+                # touches it
+                width = n_unique if n_dec is None else n_dec
+                need = max(int(width.max(initial=1)), k, 1)
+                if need <= pred:
+                    cand_ids = _unpack24(ids_slice) if packed else ids_slice
+                else:   # mispredict: fall back to the full (unpacked) matrix
+                    cand_ids = _host(routed.ids)
+                self._slice_pred = min(max(256, 1 << (need - 1).bit_length()),
+                                       r_full)
+                if n_dec is not None:
+                    cand_ids = np.where(
+                        np.arange(cand_ids.shape[1])[None, :]
+                        < n_dec[:, None], cand_ids, -1)
 
         q, r = cand_ids.shape
         flat = np.ascontiguousarray(cand_ids).reshape(-1)
         dim = self.index.dim
+        upload_ns = 0
         if self.cfg.runtime.refine_backend == "device":
-            if self._stage_buf.size < flat.size * dim:
-                self._stage_buf = np.zeros(flat.size * dim, np.float32)
-            out = self._stage_buf[:flat.size * dim].reshape(flat.size, dim)
-            # no norms_out: the device refine computes distances from the
-            # candidate matrix itself
-            vecs_flat, ok_flat = self.store.load_decrypt_batch(flat, out=out)
-            valid = ok_flat.reshape(q, r)
-            if touched_parts is not None:
-                touched_parts.append(flat[ok_flat])
-            t2 = time.perf_counter()
-            dev = self.index.device
-            res = refine_ops.refine(
-                torch.from_numpy(qvecs).to(dev),
-                torch.from_numpy(vecs_flat.reshape(q, r, dim)).to(dev),
-                torch.from_numpy(cand_ids.astype(np.int32)).to(dev),
-                torch.from_numpy(valid).to(dev), k)
-            ids = res.ids.cpu().numpy().astype(np.int64)  # retry mutates
-            dists = res.distances.cpu().numpy()
-            n_scored = res.n_scored.cpu().numpy()
+            with span("query.decrypt") as decrypted:
+                if self._stage_buf.size < flat.size * dim:
+                    self._stage_buf = np.zeros(flat.size * dim, np.float32)
+                out = self._stage_buf[:flat.size * dim].reshape(flat.size,
+                                                                dim)
+                # no norms_out: the device refine computes distances from
+                # the candidate matrix itself
+                vecs_flat, ok_flat = self.store.load_decrypt_batch(flat,
+                                                                   out=out)
+                valid = ok_flat.reshape(q, r)
+                if touched_parts is not None:
+                    touched_parts.append(flat[ok_flat])
+            with span("query.refine") as refined:
+                dev = self.index.device
+                with span("refine.upload") as uploaded:
+                    inputs = (
+                        torch.from_numpy(qvecs).to(dev),
+                        torch.from_numpy(vecs_flat.reshape(q, r, dim)).to(dev),
+                        torch.from_numpy(cand_ids.astype(np.int32)).to(dev),
+                        torch.from_numpy(valid).to(dev))
+                upload_ns = uploaded.ns
+                with span("refine.compute"):
+                    res = refine_ops.refine(*inputs, k)
+                with span("refine.download"):
+                    # a copy: the retry mutates ids
+                    ids = res.ids.cpu().numpy().astype(np.int64)
+                    dists = res.distances.cpu().numpy()
+                    n_scored = res.n_scored.cpu().numpy()
         else:
             # fused decrypt-and-score: the C AES loop emits per-candidate
             # (norm, query-dot) while each row is in L1 — the plaintext
             # never reaches DRAM, and no candidate matrix exists to re-read
-            if self._norms_buf.size < flat.size:
-                self._norms_buf = np.zeros(flat.size, np.float32)
-            if self._dots_buf.size < flat.size:
-                self._dots_buf = np.zeros(flat.size, np.float32)
-            norms = self._norms_buf[:flat.size]
-            dots = self._dots_buf[:flat.size]
-            ok_flat = self.store.load_score_batch(flat, qvecs, r, norms,
-                                                  dots)
-            valid = ok_flat.reshape(q, r)
-            if touched_parts is not None:
-                touched_parts.append(flat[ok_flat])
-            t2 = time.perf_counter()
-            ids, dists, n_scored = _host_refine_scored(
-                qvecs, dots.reshape(q, r), norms.reshape(q, r), cand_ids,
-                valid, k)
-        t3 = time.perf_counter()
+            with span("query.decrypt") as decrypted:
+                if self._norms_buf.size < flat.size:
+                    self._norms_buf = np.zeros(flat.size, np.float32)
+                if self._dots_buf.size < flat.size:
+                    self._dots_buf = np.zeros(flat.size, np.float32)
+                norms = self._norms_buf[:flat.size]
+                dots = self._dots_buf[:flat.size]
+                ok_flat = self.store.load_score_batch(flat, qvecs, r, norms,
+                                                      dots)
+                valid = ok_flat.reshape(q, r)
+                if touched_parts is not None:
+                    touched_parts.append(flat[ok_flat])
+            with span("query.refine") as refined:
+                ids, dists, n_scored = _host_refine_scored(
+                    qvecs, dots.reshape(q, r), norms.reshape(q, r), cand_ids,
+                    valid, k)
 
-        stats = []
-        for qi in range(q):
-            returned = int((ids[qi] >= 0).sum())
-            stats.append(SearchStats(
-                cand_raw=int(n_raw[qi]), cand_unique=int(n_unique[qi]),
-                cand_refined=int((cand_ids[qi] >= 0).sum()),
-                cand_decrypted=int(n_scored[qi]), returned=returned,
-                route_ns=int((t1 - t_wait) * 1e9 / q) + dispatch_ns // q,
-                decrypt_ns=int((t2 - t1) * 1e9 / q),
-                refine_ns=int((t3 - t2) * 1e9 / q)))
+        with span("query.stats"):
+            kids = decrypted.children
+            lookup_ns = kids.get("store.lookup", 0) // q
+            open_ns = kids.get("store.open", 0) // q
+            wait_ns = waited.ns // q
+            stats = []
+            for qi in range(q):
+                returned = int((ids[qi] >= 0).sum())
+                stats.append(SearchStats(
+                    cand_raw=int(n_raw[qi]), cand_unique=int(n_unique[qi]),
+                    cand_refined=int((cand_ids[qi] >= 0).sum()),
+                    cand_decrypted=int(n_scored[qi]), returned=returned,
+                    route_ns=wait_ns + dispatch_ns // q,
+                    decrypt_ns=decrypted.ns // q,
+                    refine_ns=refined.ns // q,
+                    dispatch_ns=dispatch_ns // q, wait_ns=wait_ns,
+                    lookup_ns=lookup_ns, open_ns=open_ns,
+                    upload_ns=upload_ns // q,
+                    stage_a_device_ns=None if device_ns is None
+                    else device_ns // q))
         return ids, dists, stats
+
+
+# per-query times a retried query carries from its first pass
+_PASS_FIELDS = ("route_ns", "decrypt_ns", "refine_ns", "dispatch_ns",
+                "wait_ns", "lookup_ns", "open_ns", "upload_ns")
+
+
+def _charge_first_pass(retry: SearchStats, first: SearchStats) -> None:
+    """Adds the first pass's times to a retried query's second-pass stats."""
+    for f in _PASS_FIELDS:
+        setattr(retry, f, getattr(retry, f) + getattr(first, f))
+    if first.stage_a_device_ns is not None:
+        retry.stage_a_device_ns = first.stage_a_device_ns + (
+            retry.stage_a_device_ns or 0)

@@ -29,6 +29,7 @@ import numpy as np
 from ..crypto import aesgcm
 from ..crypto.keys import KeyManager
 from ..types import aad_batch, aad_for
+from ..utils.profiler import span
 from .arena import ArenaReader, ArenaWriter, secure_delete_arena
 from .metadata import MetadataLog
 
@@ -277,36 +278,39 @@ class PointStore:
             raise ValueError(f"expected vecs [{n}, {self.dim}], got {vecs.shape}")
 
         body = self._body
-        if self.dtype == "i8":
-            if prequant is not None:
-                scales, qrows = prequant
-                if len(scales) != n or qrows.shape != (n, self.dim):
-                    raise ValueError("prequant shapes disagree with vecs")
+        with span("store.seal"):
+            if self.dtype == "i8":
+                if prequant is not None:
+                    scales, qrows = prequant
+                    if len(scales) != n or qrows.shape != (n, self.dim):
+                        raise ValueError("prequant shapes disagree with vecs")
+                else:
+                    scales, qrows = self._quantize_i8(vecs)
+                payload = np.empty((n, body), np.uint8)
+                payload[:, :4] = scales.astype("<f4").view(np.uint8).reshape(
+                    n, 4)
+                payload[:, 4:] = qrows.view(np.uint8)
+                pt = payload.reshape(-1)
             else:
-                scales, qrows = self._quantize_i8(vecs)
-            payload = np.empty((n, body), np.uint8)
-            payload[:, :4] = scales.astype("<f4").view(np.uint8).reshape(n, 4)
-            payload[:, 4:] = qrows.view(np.uint8)
-            pt = payload.reshape(-1)
-        else:
-            pt = np.frombuffer(vecs.astype(self.np_dtype).tobytes(),
-                               np.uint8).copy()
-        lens = np.full(n, body, np.uint64)
-        offs = np.arange(n, dtype=np.uint64) * body
-        ivs = np.frombuffer(secrets.token_bytes(12 * n), np.uint8
-                            ).reshape(n, 12).copy()
-        aads = aad_batch(ids, kv, self.dim)
-        ct, tags = aesgcm.seal_batch(self.km.gcm_for(kv), ivs, aads, pt, offs,
-                                     lens)
+                pt = np.frombuffer(vecs.astype(self.np_dtype).tobytes(),
+                                   np.uint8).copy()
+            lens = np.full(n, body, np.uint64)
+            offs = np.arange(n, dtype=np.uint64) * body
+            ivs = np.frombuffer(secrets.token_bytes(12 * n), np.uint8
+                                ).reshape(n, 12).copy()
+            aads = aad_batch(ids, kv, self.dim)
+            ct, tags = aesgcm.seal_batch(self.km.gcm_for(kv), ivs, aads, pt,
+                                         offs, lens)
 
-        w = self._writer(kv)
-        clen = body
-        ct_tag = np.concatenate([ct.reshape(n, clen), tags], axis=1)
-        arena_offs = w.append_batch(ids, kv, self.dim, ivs, ct_tag)
-        w.flush()
-        self._dirty.add(kv)
-        self.meta.put_batch(ids, kv, self.dim, arena_offs)
-        self.meta.flush()
+        with span("store.persist"):
+            w = self._writer(kv)
+            clen = body
+            ct_tag = np.concatenate([ct.reshape(n, clen), tags], axis=1)
+            arena_offs = w.append_batch(ids, kv, self.dim, ivs, ct_tag)
+            w.flush()
+            self._dirty.add(kv)
+            self.meta.put_batch(ids, kv, self.dim, arena_offs)
+            self.meta.flush()
 
     @_locked
     def delete(self, ids) -> None:
@@ -392,11 +396,12 @@ class PointStore:
             vecs = np.zeros((n, self.dim), np.float32)
         ok = np.zeros(n, bool)
 
-        kv_all, off_all = self.meta.lookup_batch(ids)
-        present = kv_all > 0
-        if not present.any():
-            return vecs, ok
-        versions = np.unique(kv_all[present])
+        with span("store.lookup"):
+            kv_all, off_all = self.meta.lookup_batch(ids)
+            present = kv_all > 0
+            if not present.any():
+                return vecs, ok
+            versions = np.unique(kv_all[present])
 
         # Zero-copy decrypt: AES reads IV/ct/tag in place from each version's
         # mmap'd arena and scatter-writes plaintext rows straight into the
@@ -413,31 +418,34 @@ class PointStore:
         staging = vecs.reshape(-1).view(np.uint8)
         out_body = 4 * self.dim
         for kv in versions:
-            sel = np.flatnonzero(kv_all == kv)
-            # visit records in arena-offset order: sequential-ish reads
-            # prefetch far better than score-ordered random access (output
-            # positions are scatter-written, so ordering is free)
-            sel = sel[np.argsort(off_all[sel], kind="stable")]
-            reader = self._reader(int(kv))
-            # bounds guard: the native open dereferences base+off with no
-            # check of its own, so a stale offset (e.g. metadata older than
-            # a shrunk arena) must never reach it — mask to ok=False instead
-            offs = off_all[sel]
-            inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
-            sel = sel[inb]
+            with span("store.lookup"):
+                sel = np.flatnonzero(kv_all == kv)
+                # visit records in arena-offset order: sequential-ish reads
+                # prefetch far better than score-ordered random access
+                # (output positions are scatter-written, so ordering is free)
+                sel = sel[np.argsort(off_all[sel], kind="stable")]
+                reader = self._reader(int(kv))
+                # bounds guard: the native open dereferences base+off with no
+                # check of its own, so a stale offset (e.g. metadata older
+                # than a shrunk arena) must never reach it — mask to ok=False
+                # instead
+                offs = off_all[sel]
+                inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
+                sel = sel[inb]
             if not len(sel):
                 continue
-            # AADs are synthesized in C per record (L1 stack buffer) — the
-            # numpy AAD matrix was a full DRAM pass as costly as the AES
-            dest = rows[sel] if rows is not None else sel
-            ok_v = aesgcm.open_batch_records_by_id(
-                self.km.gcm_for(int(kv)),
-                reader._buf, off_all[sel].astype(np.uint64),
-                iv_rel, ct_rel, tag_rel, body,
-                ids[sel], int(kv), self.dim,
-                staging, (dest * out_body).astype(np.uint64),
-                norms=norms_out, payload_kind=self._payload_kind)
-            ok[sel] = ok_v.astype(bool)
+            with span("store.open"):
+                # AADs are synthesized in C per record (L1 stack buffer) — the
+                # numpy AAD matrix was a full DRAM pass as costly as the AES
+                dest = rows[sel] if rows is not None else sel
+                ok_v = aesgcm.open_batch_records_by_id(
+                    self.km.gcm_for(int(kv)),
+                    reader._buf, off_all[sel].astype(np.uint64),
+                    iv_rel, ct_rel, tag_rel, body,
+                    ids[sel], int(kv), self.dim,
+                    staging, (dest * out_body).astype(np.uint64),
+                    norms=norms_out, payload_kind=self._payload_kind)
+                ok[sel] = ok_v.astype(bool)
         return vecs, ok
 
     @_locked
@@ -485,32 +493,35 @@ class PointStore:
         if len(qvecs) * rows_per_query < need:
             raise ValueError("qvecs rows cover fewer slots than needed")
 
-        kv_all, off_all = self.meta.lookup_batch(ids)
-        present = kv_all > 0
-        versions = np.unique(kv_all[present]) if present.any() else []
+        with span("store.lookup"):
+            kv_all, off_all = self.meta.lookup_batch(ids)
+            present = kv_all > 0
+            versions = np.unique(kv_all[present]) if present.any() else []
         body = self._body
         iv_rel, ct_rel = 20, 32
         tag_rel = 32 + body
         out_body = 4 * self.dim
         for kv in versions:
-            sel = np.flatnonzero(kv_all == kv)
-            sel = sel[np.argsort(off_all[sel], kind="stable")]
-            reader = self._reader(int(kv))
-            offs = off_all[sel]
-            inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
-            sel = sel[inb]
+            with span("store.lookup"):
+                sel = np.flatnonzero(kv_all == kv)
+                sel = sel[np.argsort(off_all[sel], kind="stable")]
+                reader = self._reader(int(kv))
+                offs = off_all[sel]
+                inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
+                sel = sel[inb]
             if not len(sel):
                 continue
-            dest = rows[sel] if rows is not None else sel
-            ok_v = aesgcm.open_batch_records_scored(
-                self.km.gcm_for(int(kv)),
-                reader._buf, off_all[sel].astype(np.uint64),
-                iv_rel, ct_rel, tag_rel, body,
-                ids[sel], int(kv), self.dim,
-                (dest * out_body).astype(np.uint64),
-                norms_out, dots_out, qvecs, rows_per_query,
-                payload_kind=self._payload_kind)
-            ok[sel] = ok_v.astype(bool)
+            with span("store.open"):
+                dest = rows[sel] if rows is not None else sel
+                ok_v = aesgcm.open_batch_records_scored(
+                    self.km.gcm_for(int(kv)),
+                    reader._buf, off_all[sel].astype(np.uint64),
+                    iv_rel, ct_rel, tag_rel, body,
+                    ids[sel], int(kv), self.dim,
+                    (dest * out_body).astype(np.uint64),
+                    norms_out, dots_out, qvecs, rows_per_query,
+                    payload_kind=self._payload_kind)
+                ok[sel] = ok_v.astype(bool)
         # absent/pad/tombstoned slots never reach the C loop: zero them here
         # so reused staging buffers cannot leak a previous batch's values
         miss = np.flatnonzero(~ok)

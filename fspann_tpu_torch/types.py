@@ -125,7 +125,16 @@ class QueryMetrics:
 
 @dataclass
 class SearchStats:
-    """Per-query pipeline counters (reference QueryServiceImpl getters:417-475)."""
+    """Per-query pipeline counters (reference QueryServiceImpl getters:417-475).
+
+    The port's query service also fills, from its spans, each query's share
+    of its batch's: stage-A dispatch and the host's wait on the card
+    (``route_ns == dispatch_ns + wait_ns``), the server's token open, the
+    store's metadata lookup and AES-GCM open (both inside ``decrypt_ns``),
+    the device refine's upload, the touched-set tracking, and stage A's
+    time on the card between two CUDA events (only while a
+    ``torch.profiler`` records; None otherwise).  A retried query carries
+    both of its passes."""
 
     cand_raw: int = 0
     cand_unique: int = 0
@@ -138,3 +147,11 @@ class SearchStats:
     route_ns: int = 0
     refine_ns: int = 0
     touched_ids: list = field(default_factory=list)
+    dispatch_ns: int = 0
+    wait_ns: int = 0
+    token_open_ns: int = 0
+    lookup_ns: int = 0
+    open_ns: int = 0
+    upload_ns: int = 0
+    track_ns: int = 0
+    stage_a_device_ns: int | None = None

@@ -9,17 +9,29 @@ Row storage is COLUMNAR: the evaluation loop records numpy column blocks
 (query, K) — dataclass construction ×7 K-variants cost ~1 ms/query of pure
 Python at serving rates (VERDICT r2 weak 5).  ``rows`` materializes the
 object view lazily for export and ad-hoc inspection.
+
+The port adds one span recorder beside the carried ``Profiler``
+(:class:`span`, :func:`count`, :func:`recent`, :func:`totals`,
+:func:`reset`): nested host spans named ``<layer>.<phase>`` at every layer
+boundary of the serving and insert paths, per-name counts, total and self
+times, process counters, and the last requests of each kind.  While a
+``torch.profiler`` records, each span is also a ``fspann.<name>`` range on
+the profiler's clock; otherwise a span costs two clock reads and a few
+dict updates.
 """
 
 from __future__ import annotations
 
 import csv
+import gc
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass, field, fields
 
 import numpy as np
+import torch.autograd.profiler as _torch_profiler
 
 
 @dataclass
@@ -159,3 +171,146 @@ class Profiler:
 
     def summary(self) -> dict[str, float]:
         return {name: sum(v) for name, v in self.timings.items()}
+
+
+# -- spans ---------------------------------------------------------------------
+
+SPAN_HISTORY = 16_384      # requests kept per root name
+_SPAN_LOCK = threading.RLock()     # reentrant: a collection may start inside
+_SPAN_LOCAL = threading.local()
+_SPAN_STATS: dict = {}     # name -> [count, total ns, self ns]
+_SPAN_COUNTERS: dict = {}  # name -> running sum
+_SPAN_ROOTS: dict = {}     # root name -> deque of {name: total ns}
+_SPAN_SEQ = [0]            # the last root's sequence number
+
+
+def _span_stack() -> list:
+    try:
+        return _SPAN_LOCAL.stack
+    except AttributeError:
+        _SPAN_LOCAL.stack = []
+        return _SPAN_LOCAL.stack
+
+
+class span:
+    """Times the block it wraps on ``time.perf_counter_ns``.
+
+    The innermost open span of the same thread is its parent; a span with
+    none is a root (one request) and takes the next sequence number.
+    After the block, ``ns`` holds its duration and ``children`` the time
+    each direct child name covered.  Per name the recorder adds the count,
+    the total and the self time (the duration less its children's); each
+    root keeps ``{name: total ns}`` over itself and its descendants,
+    counters included, for :func:`recent`.  While ``torch.profiler``
+    records, the block is also the range ``fspann.<name>`` with the root's
+    sequence number as its args."""
+
+    __slots__ = ("name", "ns", "children", "_t0", "_parent", "_tree",
+                 "_seq", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.ns = 0
+        self.children: dict = {}
+
+    def __enter__(self) -> "span":
+        stack = _span_stack()
+        parent = stack[-1] if stack else None
+        self._parent = parent
+        if parent is None:
+            with _SPAN_LOCK:
+                _SPAN_SEQ[0] += 1
+                self._seq = _SPAN_SEQ[0]
+            self._tree = {}
+        else:
+            self._seq, self._tree = parent._seq, parent._tree
+        self._range = None
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(
+                "fspann." + self.name, str(self._seq))
+            self._range.__enter__()
+        stack.append(self)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        ns = time.perf_counter_ns() - self._t0
+        self.ns = ns
+        _span_stack().pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        name, parent, tree = self.name, self._parent, self._tree
+        own = ns - sum(self.children.values())
+        tree[name] = tree.get(name, 0) + ns
+        if parent is not None:
+            kids = parent.children
+            kids[name] = kids.get(name, 0) + ns
+        with _SPAN_LOCK:
+            st = _SPAN_STATS.get(name)
+            if st is None:
+                _SPAN_STATS[name] = [1, ns, own]
+            else:
+                st[0] += 1
+                st[1] += ns
+                st[2] += own
+            if parent is None:
+                hist = _SPAN_ROOTS.get(name)
+                if hist is None:
+                    hist = _SPAN_ROOTS[name] = deque(maxlen=SPAN_HISTORY)
+                hist.append(tree)
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the process counter ``name`` and to the open root's
+    record."""
+    stack = _span_stack()
+    if stack:
+        tree = stack[-1]._tree
+        tree[name] = tree.get(name, 0) + n
+    with _SPAN_LOCK:
+        _SPAN_COUNTERS[name] = _SPAN_COUNTERS.get(name, 0) + n
+
+
+def recent(root: str, n: int) -> list:
+    """The last ``n`` roots named ``root``, oldest first, each as
+    ``{name: total ns}`` over the root and its descendants (counters under
+    their own names)."""
+    with _SPAN_LOCK:
+        hist = list(_SPAN_ROOTS.get(root, ()))
+    return hist[-n:] if n > 0 else []
+
+
+def totals() -> dict:
+    """``{"spans": {name: (count, total ns, self ns)}, "counters": {name:
+    sum}}`` since the last :func:`reset`."""
+    with _SPAN_LOCK:
+        return {"spans": {k: tuple(v) for k, v in _SPAN_STATS.items()},
+                "counters": dict(_SPAN_COUNTERS)}
+
+
+def reset() -> None:
+    """Forgets every span, counter and root (open spans still close)."""
+    with _SPAN_LOCK:
+        _SPAN_STATS.clear()
+        _SPAN_COUNTERS.clear()
+        _SPAN_ROOTS.clear()
+        _SPAN_SEQ[0] = 0
+
+
+_GC_OPEN: list = []
+
+
+def _gc_span(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: each collection is a ``python.gc`` span (its
+    generation counted as ``python.gc.gen<g>``)."""
+    if phase == "start":
+        s = span("python.gc")
+        s.__enter__()
+        _GC_OPEN.append(s)
+    elif _GC_OPEN:
+        _GC_OPEN.pop().__exit__(None, None, None)
+        count(f"python.gc.gen{info['generation']}")
+
+
+gc.callbacks.append(_gc_span)
