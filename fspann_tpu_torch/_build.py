@@ -11,7 +11,10 @@ Two kinds of library, both plain C ABIs loaded with ctypes:
   holds the copies to them) with their Makefiles' flags: AES-256-GCM
   (``csrc/native/aes_gcm.c`` → ``build/libfspann_crypto.so``) and the
   packed Hamming top-L scan (``csrc/native/hamming_topl.c`` →
-  ``build/libfspann_scan.so``).
+  ``build/libfspann_scan.so``).  Beside them the port's own host C, the
+  pooled candidate read (``csrc/native/open_pool.c``, which includes
+  ``aes_gcm.c``, → ``build/libfspann_open_pool.so``, with the AES-GCM
+  flags).
 
 ``build/`` is git-ignored; every fresh checkout builds here on first use.
 A lock file per library serialises concurrent builds of that library
@@ -42,6 +45,7 @@ NATIVE_SCAN_SRC = os.path.join(CSRC_DIR, "native", "hamming_topl.c")
 # the JAX package's ops/native/Makefile: CFLAGS, plus -shared
 NATIVE_SCAN_CFLAGS = ["-O3", "-Wall", "-Wextra", "-mpopcnt", "-fPIC",
                       "-pthread", "-shared"]
+OPEN_POOL_SRC = os.path.join(CSRC_DIR, "native", "open_pool.c")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -98,6 +102,14 @@ def native_scan_library_path() -> str:
                                NATIVE_SCAN_SRC])
 
 
+def open_pool_library_path() -> str:
+    """Path of the host pooled candidate-read library, built on first use."""
+    cc = os.environ.get("CC", "gcc")
+    return _build("libfspann_open_pool.so", [OPEN_POOL_SRC, AES_GCM_SRC],
+                  lambda out: [cc, *AES_GCM_CFLAGS, "-o", out,
+                               OPEN_POOL_SRC])
+
+
 def cuda_library(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` built for sm_90a and loaded (cached per process)."""
     lib = _LIBS.get(name)
@@ -114,9 +126,10 @@ def build_all() -> None:
     for each host library, all started together (a library that is up to
     date is only loaded)."""
     names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
-    with ThreadPoolExecutor(len(names) + 2) as ex:
+    with ThreadPoolExecutor(len(names) + 3) as ex:
         jobs = [ex.submit(cuda_library, n) for n in names]
         jobs.append(ex.submit(aes_gcm_library_path))
         jobs.append(ex.submit(native_scan_library_path))
+        jobs.append(ex.submit(open_pool_library_path))
         for job in jobs:
             job.result()

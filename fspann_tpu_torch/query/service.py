@@ -2,10 +2,11 @@
 
 Pipeline per batch of tokens:
   Stage A  — device routing: ranked candidate ids per query (index.route_batch)
-  Stage B  — host bulk load + ONE batched multi-key AES-GCM open; with
-             ``refine_backend="host"`` fused with scoring (the C loop emits
-             each candidate's norm and query dot), with "device" into a
-             staging matrix
+  Stage B  — host bulk load + ONE batched multi-key AES-GCM open (for a
+             ``PointStore`` one native pass on a pool of host threads,
+             ``store/parallel_read.py``); with ``refine_backend="host"``
+             fused with scoring (the C loop emits each candidate's norm and
+             query dot), with "device" into a staging matrix
   Stage C  — "host": exact L2 + top-K from those scalars; "device": the
              [Q, R, d] candidates go to the index device for ops/refine
   Retry    — queries with returned < K or decrypted < min(10*K, limit) are
@@ -36,6 +37,7 @@ from ..crypto.keys import KeyManager
 from ..crypto.rotation import ReencryptionTracker
 from ..index.service import PartitionedIndex
 from ..ops import refine as refine_ops
+from ..store import parallel_read
 from ..store.point_store import PointStore
 from ..types import QueryResult, QueryToken, SearchStats
 from ..utils.profiler import span
@@ -325,6 +327,13 @@ class QueryService:
 
     # -- internals ----------------------------------------------------------------
 
+    def _pooled_read(self) -> bool:
+        """A ``PointStore`` is read on the host's cores in one native pass
+        (``store/parallel_read.py``); any other store, such as the sharded
+        store that runs its shards on threads of its own, by its own
+        methods."""
+        return type(self.store) is PointStore
+
     def _decrypt_queries(self, tokens: list[QueryToken]) -> np.ndarray:
         """Server-side token decrypt under the token's key version
         (trusted-eval shortcut, reference QueryServiceImpl.java:124-135).
@@ -487,8 +496,12 @@ class QueryService:
                                                                 dim)
                 # no norms_out: the device refine computes distances from
                 # the candidate matrix itself
-                vecs_flat, ok_flat = self.store.load_decrypt_batch(flat,
-                                                                   out=out)
+                if self._pooled_read():
+                    vecs_flat, ok_flat = parallel_read.decrypt_batch(
+                        self.store, flat, out=out)
+                else:
+                    vecs_flat, ok_flat = self.store.load_decrypt_batch(
+                        flat, out=out)
                 valid = ok_flat.reshape(q, r)
                 if touched_parts is not None:
                     touched_parts.append(flat[ok_flat])
@@ -519,8 +532,12 @@ class QueryService:
                     self._dots_buf = np.zeros(flat.size, np.float32)
                 norms = self._norms_buf[:flat.size]
                 dots = self._dots_buf[:flat.size]
-                ok_flat = self.store.load_score_batch(flat, qvecs, r, norms,
-                                                      dots)
+                if self._pooled_read():
+                    ok_flat = parallel_read.score_batch(self.store, flat,
+                                                        qvecs, r, norms, dots)
+                else:
+                    ok_flat = self.store.load_score_batch(flat, qvecs, r,
+                                                          norms, dots)
                 valid = ok_flat.reshape(q, r)
                 if touched_parts is not None:
                     touched_parts.append(flat[ok_flat])
