@@ -116,13 +116,16 @@ def _read(store: PointStore, ids: np.ndarray, pt: np.ndarray | None,
         ok = np.empty(n, np.uint8)
     with span("store.open"):
         workers = ctypes.c_int(0)
-        lib.fspann_open_pool_run(
+        failed_tags = lib.fspann_open_pool_run(
             n, _ptr(ids), _ptr(kv), _ptr(off), len(kv), rows, _ptr(ctxs),
             _ptr(bases), _ptr(sizes), store._body, store.dim,
             store._payload_kind, _ptr(pt), _ptr(norms), _ptr(dots),
             _ptr(qvecs), rows_per_query, _ptr(ok), int(width),
             ctypes.byref(workers))
     count("store.open.workers", workers.value)
+    # every record that reached an open, its tag good or not
+    count("store.open.bytes",
+          (int(np.count_nonzero(ok)) + failed_tags) * store.record_ct_len)
     return ok
 
 
