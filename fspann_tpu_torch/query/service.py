@@ -14,7 +14,8 @@ Pipeline per batch of tokens:
              reference probeOverride=10) or a widened decrypt budget (scan
              mode) (reference adaptive retry :327-337, needRetry :444-447)
   Tracking — successfully refined ids recorded into the ReencryptionTracker
-             (reference :342-351 in a finally block)
+             (reference :342-351 in a finally block), each only once
+             between the tracker's drains (``query/touched.py``)
 
 The reference walks candidates one at a time through RocksDB + JCE; here the
 ranked ids of a whole batch cross the device→host boundary once, as an
@@ -41,6 +42,7 @@ from ..store import parallel_read
 from ..store.point_store import PointStore
 from ..types import QueryResult, QueryToken, SearchStats
 from ..utils.profiler import span
+from .touched import TouchedMap
 
 
 class StaleTokenError(ValueError):
@@ -208,6 +210,8 @@ class QueryService:
         self._stage_buf = np.zeros(0, np.float32)
         self._norms_buf = np.zeros(0, np.float32)
         self._dots_buf = np.zeros(0, np.float32)
+        # ids the tracker holds since its last drain, one byte an id
+        self._touched = TouchedMap()
 
     # -- public ------------------------------------------------------------------
 
@@ -315,11 +319,16 @@ class QueryService:
             # finally block :342-351) — the selective re-encryption set, not
             # merely the returned top-K
             with span("query.track") as tracked:
-                touched = np.unique(np.concatenate(touched_parts))
-                if self.tracker is not None:
-                    self.tracker.record(touched)
-                if self.on_touched is not None:
-                    self.on_touched(touched)
+                # the tracker alone listens: forward only the ids it does
+                # not hold yet (query/touched.py); immediate re-encryption
+                # needs each batch's whole sorted-unique set
+                if self.on_touched is not None or not self._touched.record(
+                        touched_parts, self.tracker, self.index.size):
+                    touched = np.unique(np.concatenate(touched_parts))
+                    if self.tracker is not None:
+                        self.tracker.record(touched)
+                    if self.on_touched is not None:
+                        self.on_touched(touched)
             for s in stats:
                 s.track_ns = tracked.ns // len(stats)
         self.last_stats = stats
