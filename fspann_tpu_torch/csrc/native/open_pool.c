@@ -1,19 +1,21 @@
 /* A batch's whole candidate read in one native pass, on a persistent pool
  * of host threads: the metadata lookup, the arena bounds guard and the
  * AES-256-GCM record open (fused with the norm and query dot, or writing
- * f32 staging rows).
+ * f32 staging rows).  PointStore.load_score_batch and load_decrypt_batch
+ * are this pass (through store/parallel_read.py).
  *
  * The record open itself is aes_gcm.c's, included below, so this library
- * computes exactly what PointStore.load_score_batch / load_decrypt_batch
- * compute through libfspann_crypto.so: per candidate slot s,
+ * computes exactly what the JAX package's store computes with one
+ * aes_gcm.c call per key version: per candidate slot s, with its
+ * output row r = rows[s] (r = s where rows is NULL),
  *   kv  = meta_kv[ids[s]]   (0 absent, < 0 tombstoned: a miss, ok = 0)
  *   off = meta_off[ids[s]]  (outside [0, arena size - record) : a miss)
  *   open the record at bases[kv] + off under ctxs[kv], AAD from
- *   (ids[s], kv, dim), into staging row s or into norms[s] / dots[s]
- *   against qvecs[s / rows_per_query].
- * In score mode (pt == NULL) a miss zeroes norms[s] and dots[s]; in
- * staging mode it leaves row s and norms[s] untouched, as the carried
- * reader does.  A failed tag zeroes the row and its norm and dot.
+ *   (ids[s], kv, dim), into staging row r or into norms[r] / dots[r]
+ *   against qvecs[r / rows_per_query]; its ok lands at ok[s].
+ * In score mode (pt == NULL) a miss zeroes norms[r] and dots[r]; in
+ * staging mode it leaves row r and norms[r] untouched, as the JAX
+ * package's reader does.  A failed tag zeroes the row and its norm and dot.
  *
  * The pool: one process-wide set of detached worker threads, started at
  * first use and grown to the widest call seen.  A call cuts its slots into
@@ -46,6 +48,7 @@
 typedef struct {
     size_t n;
     const int64_t *ids;
+    const int64_t *rows;           /* output row per slot, or NULL: s */
     const int32_t *meta_kv;
     const int64_t *meta_off;
     uint64_t meta_cap;
@@ -98,6 +101,7 @@ static int open_chunk(const pool_job *j, size_t lo, size_t hi) {
     int mixed = 0;
     for (size_t s = lo; s < hi; s++) {
         const int64_t id = j->ids[s];
+        const uint64_t row = j->rows ? (uint64_t)j->rows[s] : s;
         int32_t kv = 0;
         int64_t off = -1;
         if (id >= 0 && (uint64_t)id < j->meta_cap) {
@@ -108,13 +112,13 @@ static int open_chunk(const pool_job *j, size_t lo, size_t hi) {
                 || off < 0 || (uint64_t)off + rec_end > j->sizes[kv]) {
             j->ok[s] = 0;
             if (score) {
-                j->norms[s] = 0.f;
-                j->dots[s] = 0.f;
+                j->norms[row] = 0.f;
+                j->dots[row] = 0.f;
             }
             continue;
         }
         rec_off[m] = (uint64_t)off;
-        pt_off[m] = (uint64_t)s * row_bytes;
+        pt_off[m] = row * row_bytes;
         cid[m] = id;
         slot[m] = s;
         ver[m] = (uint32_t)kv;
@@ -252,8 +256,9 @@ int fspann_open_pool_threads(void) {
  * the workers that may take chunks; 1 runs on the caller alone.  Writes
  * the threads that took a chunk to *workers; returns the failed tags. */
 int fspann_open_pool_run(size_t n, const int64_t *ids,
-                         const int32_t *meta_kv, const int64_t *meta_off,
-                         uint64_t meta_cap, uint32_t n_versions,
+                         const int64_t *rows, const int32_t *meta_kv,
+                         const int64_t *meta_off, uint64_t meta_cap,
+                         uint32_t n_versions,
                          const uint64_t *ctxs, const uint64_t *bases,
                          const uint64_t *sizes, uint32_t body, uint32_t dim,
                          int payload_kind, uint8_t *pt, float *norms,
@@ -262,8 +267,9 @@ int fspann_open_pool_run(size_t n, const int64_t *ids,
                          int *workers) {
     pool_job j;
     memset(&j, 0, sizeof j);
-    j.n = n; j.ids = ids; j.meta_kv = meta_kv; j.meta_off = meta_off;
-    j.meta_cap = meta_cap; j.n_versions = n_versions; j.ctxs = ctxs;
+    j.n = n; j.ids = ids; j.rows = rows; j.meta_kv = meta_kv;
+    j.meta_off = meta_off; j.meta_cap = meta_cap; j.n_versions = n_versions;
+    j.ctxs = ctxs;
     j.bases = bases; j.sizes = sizes; j.body = body; j.dim = dim;
     j.payload_kind = payload_kind; j.pt = pt; j.norms = norms;
     j.dots = dots; j.qvecs = qvecs;

@@ -2,11 +2,12 @@
 
 Pipeline per batch of tokens:
   Stage A  — device routing: ranked candidate ids per query (index.route_batch)
-  Stage B  — host bulk load + ONE batched multi-key AES-GCM open (for a
-             ``PointStore`` one native pass on a pool of host threads,
-             ``store/parallel_read.py``); with ``refine_backend="host"``
-             fused with scoring (the C loop emits each candidate's norm and
-             query dot), with "device" into a staging matrix
+  Stage B  — host bulk load + ONE batched multi-key AES-GCM open through
+             the store's ``load_score_batch`` (``refine_backend="host"``:
+             the C loop emits each candidate's norm and query dot) or
+             ``load_decrypt_batch`` ("device": into a staging matrix); a
+             ``PointStore`` reads in one native pass on the host's cores,
+             a sharded store each shard's subset that way
   Stage C  — "host": exact L2 + top-K from those scalars; "device": the
              [Q, R, d] candidates go to the index device for ops/refine
   Retry    — queries with returned < K or decrypted < min(10*K, limit) are
@@ -38,7 +39,6 @@ from ..crypto.keys import KeyManager
 from ..crypto.rotation import ReencryptionTracker
 from ..index.service import PartitionedIndex
 from ..ops import refine as refine_ops
-from ..store import parallel_read
 from ..store.point_store import PointStore
 from ..types import QueryResult, QueryToken, SearchStats
 from ..utils.profiler import span
@@ -336,13 +336,6 @@ class QueryService:
 
     # -- internals ----------------------------------------------------------------
 
-    def _pooled_read(self) -> bool:
-        """A ``PointStore`` is read on the host's cores in one native pass
-        (``store/parallel_read.py``); any other store, such as the sharded
-        store that runs its shards on threads of its own, by its own
-        methods."""
-        return type(self.store) is PointStore
-
     def _decrypt_queries(self, tokens: list[QueryToken]) -> np.ndarray:
         """Server-side token decrypt under the token's key version
         (trusted-eval shortcut, reference QueryServiceImpl.java:124-135).
@@ -505,12 +498,8 @@ class QueryService:
                                                                 dim)
                 # no norms_out: the device refine computes distances from
                 # the candidate matrix itself
-                if self._pooled_read():
-                    vecs_flat, ok_flat = parallel_read.decrypt_batch(
-                        self.store, flat, out=out)
-                else:
-                    vecs_flat, ok_flat = self.store.load_decrypt_batch(
-                        flat, out=out)
+                vecs_flat, ok_flat = self.store.load_decrypt_batch(flat,
+                                                                   out=out)
                 valid = ok_flat.reshape(q, r)
                 if touched_parts is not None:
                     touched_parts.append(flat[ok_flat])
@@ -541,12 +530,8 @@ class QueryService:
                     self._dots_buf = np.zeros(flat.size, np.float32)
                 norms = self._norms_buf[:flat.size]
                 dots = self._dots_buf[:flat.size]
-                if self._pooled_read():
-                    ok_flat = parallel_read.score_batch(self.store, flat,
-                                                        qvecs, r, norms, dots)
-                else:
-                    ok_flat = self.store.load_score_batch(flat, qvecs, r,
-                                                          norms, dots)
+                ok_flat = self.store.load_score_batch(flat, qvecs, r, norms,
+                                                      dots)
                 valid = ok_flat.reshape(q, r)
                 if touched_parts is not None:
                     touched_parts.append(flat[ok_flat])

@@ -7,9 +7,15 @@ the decrypt stage's arena traffic 2x/4x on a bandwidth-bound host),
 sealed with AES-256-GCM under AAD ``id:{id}|v:{kv}|d:{dim}`` (reference
 crypto/AesGcmCryptoService.java:72-83), appended to the key version's arena,
 then committed via the metadata log.  Candidate loading is the query hot
-path: group by key version, one mmap gather per version, ONE batched
-multi-key GCM open for the whole candidate set (reference decrypts one point
-per JCE call — QueryServiceImpl.java:238-271).
+path: ONE native pass over the whole candidate set on the host's cores
+(``csrc/native/open_pool.c`` through ``parallel_read.py``) does the metadata
+lookup, the arena bounds guard and the multi-key GCM open (reference
+decrypts one point per JCE call — QueryServiceImpl.java:238-271).
+
+A carried copy of the JAX package's module, held equal to it member by
+member, except the port's own read: ``load_decrypt_batch``,
+``load_score_batch`` and ``_open_records``, held to the JAX package's
+methods by behaviour (``tests/test_torch_parallel_read.py``).
 
 Routing–ciphertext orthogonality: nothing in this module touches routing
 state; re-encryption rewrites arena records and metadata only.
@@ -17,6 +23,7 @@ state; re-encryption rewrites arena records and metadata only.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 import secrets
@@ -29,7 +36,8 @@ import numpy as np
 from ..crypto import aesgcm
 from ..crypto.keys import KeyManager
 from ..types import aad_batch, aad_for
-from ..utils.profiler import span
+from ..utils.profiler import count, span
+from . import parallel_read
 from .arena import ArenaReader, ArenaWriter, secure_delete_arena
 from .metadata import MetadataLog
 
@@ -374,19 +382,23 @@ class PointStore:
         scattered slots).  The returned ``ok`` stays indexed by input
         position.
 
-        Fully vectorized: one metadata gather, one mmap gather per live key
-        version, ONE multi-key GCM open for the whole set (per-record key
-        versions — reference QueryServiceImpl.java:250-251)."""
-        ids = np.asarray(ids, np.int64)
+        The port's own: one native pass over the whole set on the host's
+        cores (:meth:`_open_records`) — the metadata lookup, the bounds
+        guard and the multi-key GCM open (per-record key versions —
+        reference QueryServiceImpl.java:250-251); the JAX package's method,
+        one C call per key version, is its reference."""
+        ids = np.ascontiguousarray(ids, np.int64)
         n = len(ids)
         if rows is not None:
-            rows = np.asarray(rows, np.int64)
+            rows = np.ascontiguousarray(rows, np.int64)
             if out is None:
                 raise ValueError("rows= requires a caller-owned out= buffer")
             if len(rows) != n:
                 raise ValueError("rows/ids length mismatch")
+            if rows.min(initial=0) < 0:
+                raise ValueError("rows must be >= 0")
+        need = (int(rows.max(initial=-1)) + 1) if rows is not None else n
         if out is not None:
-            need = (int(rows.max(initial=-1)) + 1) if rows is not None else n
             if out.ndim != 2 or out.shape[1] != self.dim \
                     or out.shape[0] < need or out.dtype != np.float32 \
                     or not out.flags.c_contiguous:
@@ -394,59 +406,12 @@ class PointStore:
             vecs = out
         else:
             vecs = np.zeros((n, self.dim), np.float32)
-        ok = np.zeros(n, bool)
-
-        with span("store.lookup"):
-            kv_all, off_all = self.meta.lookup_batch(ids)
-            present = kv_all > 0
-            if not present.any():
-                return vecs, ok
-            versions = np.unique(kv_all[present])
-
-        # Zero-copy decrypt: AES reads IV/ct/tag in place from each version's
-        # mmap'd arena and scatter-writes plaintext rows straight into the
-        # output matrix — no gather copies (this host is DRAM-bandwidth
-        # bound, so every avoided pass over the candidate set is ~linear
-        # speedup).
-        body = self._body
-        iv_rel = 20            # arena record: 20-byte header, then iv
-        ct_rel = 32
-        tag_rel = 32 + body
-        # output staging is ALWAYS the f32 matrix: for f16/i8 payloads the
-        # C loop decrypts into an L1 scratch row and widens/dequantizes to
-        # f32 with norms fused — no separate convert or norm pass
-        staging = vecs.reshape(-1).view(np.uint8)
-        out_body = 4 * self.dim
-        for kv in versions:
-            with span("store.lookup"):
-                sel = np.flatnonzero(kv_all == kv)
-                # visit records in arena-offset order: sequential-ish reads
-                # prefetch far better than score-ordered random access
-                # (output positions are scatter-written, so ordering is free)
-                sel = sel[np.argsort(off_all[sel], kind="stable")]
-                reader = self._reader(int(kv))
-                # bounds guard: the native open dereferences base+off with no
-                # check of its own, so a stale offset (e.g. metadata older
-                # than a shrunk arena) must never reach it — mask to ok=False
-                # instead
-                offs = off_all[sel]
-                inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
-                sel = sel[inb]
-            if not len(sel):
-                continue
-            with span("store.open"):
-                # AADs are synthesized in C per record (L1 stack buffer) — the
-                # numpy AAD matrix was a full DRAM pass as costly as the AES
-                dest = rows[sel] if rows is not None else sel
-                ok_v = aesgcm.open_batch_records_by_id(
-                    self.km.gcm_for(int(kv)),
-                    reader._buf, off_all[sel].astype(np.uint64),
-                    iv_rel, ct_rel, tag_rel, body,
-                    ids[sel], int(kv), self.dim,
-                    staging, (dest * out_body).astype(np.uint64),
-                    norms=norms_out, payload_kind=self._payload_kind)
-                ok[sel] = ok_v.astype(bool)
-        return vecs, ok
+        if norms_out is not None and (
+                norms_out.dtype != np.float32 or len(norms_out) < need
+                or not norms_out.flags.c_contiguous):
+            raise ValueError("norms_out must be contiguous f32 [>=n]")
+        return vecs, self._open_records(ids, rows, vecs, norms_out, None,
+                                        None, 1)
 
     @_locked
     def load_score_batch(self, ids: np.ndarray, qvecs: np.ndarray,
@@ -467,21 +432,23 @@ class PointStore:
         shards' subsets into one caller-owned (norms, dots) pair exactly
         like :meth:`load_decrypt_batch`'s scattered staging.
 
-        Same metadata/version/bounds handling as :meth:`load_decrypt_batch`
-        (one mmap'd arena + ONE C call per live key version, AADs
-        synthesized in-loop — reference QueryServiceImpl.java:250-251)."""
-        ids = np.asarray(ids, np.int64)
+        The same native pass as :meth:`load_decrypt_batch`, AADs
+        synthesized in-loop."""
+        ids = np.ascontiguousarray(ids, np.int64)
         n = len(ids)
-        ok = np.zeros(n, bool)
         if rows is not None:
-            rows = np.asarray(rows, np.int64)
+            rows = np.ascontiguousarray(rows, np.int64)
             if len(rows) != n:
                 raise ValueError("rows/ids length mismatch")
+            if rows.min(initial=0) < 0:
+                raise ValueError("rows must be >= 0")
         if norms_out.dtype != np.float32 or dots_out.dtype != np.float32:
             raise ValueError("norms_out/dots_out must be f32")
         need = (int(rows.max(initial=-1)) + 1) if rows is not None else n
         if len(norms_out) < need or len(dots_out) < need:
             raise ValueError("norms_out/dots_out too short")
+        if not (norms_out.flags.c_contiguous and dots_out.flags.c_contiguous):
+            raise ValueError("norms_out/dots_out must be contiguous")
         qvecs = np.asarray(qvecs)
         if rows_per_query < 1:
             raise ValueError("rows_per_query must be >= 1")
@@ -492,44 +459,47 @@ class PointStore:
         # instead of reading past the query matrix
         if len(qvecs) * rows_per_query < need:
             raise ValueError("qvecs rows cover fewer slots than needed")
+        return self._open_records(ids, rows, None, norms_out, dots_out,
+                                  np.ascontiguousarray(qvecs, np.float32),
+                                  rows_per_query)
 
+    def _open_records(self, ids, rows, pt, norms, dots, qvecs,
+                      rows_per_query) -> np.ndarray:
+        """The read of :meth:`load_decrypt_batch` (``pt`` given) or
+        :meth:`load_score_batch`, checked by them, under the store lock:
+        each key version's expanded key and arena as mapped now, then one
+        pass of ``csrc/native/open_pool.c`` over every candidate.  Returns
+        ok bool [n]."""
         with span("store.lookup"):
-            kv_all, off_all = self.meta.lookup_batch(ids)
-            present = kv_all > 0
-            versions = np.unique(kv_all[present]) if present.any() else []
-        body = self._body
-        iv_rel, ct_rel = 20, 32
-        tag_rel = 32 + body
-        out_body = 4 * self.dim
-        for kv in versions:
-            with span("store.lookup"):
-                sel = np.flatnonzero(kv_all == kv)
-                sel = sel[np.argsort(off_all[sel], kind="stable")]
-                reader = self._reader(int(kv))
-                offs = off_all[sel]
-                inb = (offs >= 0) & (offs + (tag_rel + TAG_LEN) <= reader.size)
-                sel = sel[inb]
-            if not len(sel):
-                continue
-            with span("store.open"):
-                dest = rows[sel] if rows is not None else sel
-                ok_v = aesgcm.open_batch_records_scored(
-                    self.km.gcm_for(int(kv)),
-                    reader._buf, off_all[sel].astype(np.uint64),
-                    iv_rel, ct_rel, tag_rel, body,
-                    ids[sel], int(kv), self.dim,
-                    (dest * out_body).astype(np.uint64),
-                    norms_out, dots_out, qvecs, rows_per_query,
-                    payload_kind=self._payload_kind)
-                ok[sel] = ok_v.astype(bool)
-        # absent/pad/tombstoned slots never reach the C loop: zero them here
-        # so reused staging buffers cannot leak a previous batch's values
-        miss = np.flatnonzero(~ok)
-        if len(miss):
-            slots = rows[miss] if rows is not None else miss
-            norms_out[slots] = 0.0
-            dots_out[slots] = 0.0
-        return ok
+            versions = sorted(self.meta.live_versions())
+            table = np.zeros((3, versions[-1] + 1 if versions else 1),
+                             np.uint64)
+            # the keys and arenas stay referenced until the pass ends
+            held, broken = [], {}
+            for v in versions:
+                try:
+                    reader, key = self._reader(v), self.km.gcm_for(v)
+                except (OSError, KeyError) as e:
+                    broken[v] = e       # an error only for its own records
+                    continue
+                held.append((reader, key))
+                table[:, v] = (ctypes.addressof(key._ctx),
+                               reader._buf.ctypes.data, reader.size)
+            if broken:
+                kv_all, _ = self.meta.lookup_batch(ids)
+                for v, e in broken.items():
+                    if (kv_all == v).any():
+                        raise e
+        with span("store.open"):
+            ok, workers, failed = parallel_read.open_records(
+                ids, rows, self.meta._kv, self.meta._off, table, self._body,
+                self.dim, self._payload_kind, pt, norms, dots, qvecs,
+                rows_per_query)
+        count("store.open.workers", workers)
+        # every record that reached an open, its tag good or not
+        count("store.open.bytes",
+              (int(np.count_nonzero(ok)) + failed) * self.record_ct_len)
+        return ok.view(bool)
 
     def key_version_of(self, pid: int) -> int | None:
         m = self.meta.get(int(pid))

@@ -1,24 +1,28 @@
-"""Time the store's candidate read on the host: the carried single-thread
-``PointStore.load_*`` against the pooled reader
-(``fspann_tpu_torch/store/parallel_read.py``) at each pool width.
+"""Time the store's candidate read on the host, ``PointStore.load_*`` (one
+native pass on a pool of host threads: ``fspann_tpu_torch/store/
+parallel_read.py``, ``csrc/native/open_pool.c``), at each ``FSPANN_THREADS``
+width.
 
     python3 scripts/torch_open_pool_bench.py [--rows N] [--out FILE]
 
 Builds a store of ``--rows`` rows of 128 f16 values (SIFT1M's width and the
 benchmark's storage dtype: 304-byte records) under ``$TMPDIR``, holds the
-pooled reader to the carried methods bit for bit on one batch, then times
-on the host clock (median of repeats):
+reads at every width to the one-thread read bit for bit on one batch with
+misses, then times on the host clock (median of repeats):
 
-* a scan batch's fused score read (64 queries x 1,600 candidates): the
-  carried method, then the reader at widths 1, 2, 4, ... up to the usable
-  cores;
-* the same at full width with the candidate ids in three orders: as drawn,
-  sorted inside each chunk of 1,024, and sorted whole (arena order on a
-  dense build);
-* a probe batch's staging read (64 x 2,000 rows into a reused buffer);
-* small reads (32 to 4,096 candidates) at width 1 and at full width, in
-  turns, with a 1 ms pause before each so that the workers sleep as they
-  do between a serving thread's batches: where the pool starts to pay.
+* a scan batch's fused score read (64 queries x 1,600 candidates) at
+  widths 1, 2, 4, ... up to the usable cores;
+* the same at width 1 and at full width with the candidate ids in three
+  orders: as drawn, sorted inside each chunk of 1,024, and sorted whole
+  (arena order on a dense build);
+* a probe batch's staging read (64 x 2,000 rows into a reused buffer) at
+  width 1 and at full width;
+* small reads (32 to 4,096 candidates), with a 1 ms pause before each so
+  that the workers sleep as they do between a serving thread's batches:
+  as served (full width, on the caller's thread alone below
+  ``INLINE_BELOW``), on one thread, and on the pool at full width with
+  ``INLINE_BELOW`` set to 0 for the run.  The last two are what the
+  threshold is tuned from: where the pool starts to beat one thread.
 
 Prints the host's CPU model and usable cores first, and the card's name and
 power limit where ``nvidia-smi`` answers.  ``--out`` writes the readings as
@@ -100,39 +104,44 @@ def main() -> int:
     out["build_s"] = time.perf_counter() - t0
     print(f"store of {args.rows} rows in {out['build_s']:.1f} s", flush=True)
 
+    os.environ.pop("FSPANN_THREADS", None)
     full = parallel_read.default_width()
     q = rng.normal(size=(64, DIM)).astype(np.float32)
 
-    def score(ids, width=None, carried=False):
+    def at(width, fn):
+        os.environ["FSPANN_THREADS"] = str(width)
+        try:
+            return fn()
+        finally:
+            del os.environ["FSPANN_THREADS"]
+
+    def score(ids):
         n = len(ids)
         norms, dots = np.zeros(n, np.float32), np.zeros(n, np.float32)
         rpq = max(1, -(-n // 64))
-        if carried:
-            return store.load_score_batch(ids, q, rpq, norms, dots), norms, \
-                dots
-        return parallel_read.score_batch(store, ids, q, rpq, norms, dots,
-                                         width=width), norms, dots
+        return store.load_score_batch(ids, q, rpq, norms, dots), norms, dots
 
+    widths = sorted({1, 2, 4, 8, full} & set(range(1, full + 1)))
     # equality on a batch with misses: absent, negative, past the end
     ids = rng.integers(-50, args.rows + 50, size=64 * 1_600)
-    a, b = score(ids, carried=True), score(ids)
-    same = all(np.array_equal(x.view(np.uint8), y.view(np.uint8))
-               for x, y in zip(a, b))
-    stage_a = np.zeros((len(ids), DIM), np.float32)
-    stage_b = np.zeros((len(ids), DIM), np.float32)
-    va, oa = store.load_decrypt_batch(ids, out=stage_a)
-    vb, ob = parallel_read.decrypt_batch(store, ids, out=stage_b)
-    same = same and np.array_equal(oa, ob) and np.array_equal(
-        va.view(np.uint32), vb.view(np.uint32))
+    one = at(1, lambda: score(ids))
+    stage = np.zeros((len(ids), DIM), np.float32)
+    one_v = at(1, lambda: store.load_decrypt_batch(ids, out=stage))[0].copy()
+    same = True
+    for w in widths[1:]:
+        got = at(w, lambda: score(ids))
+        same = same and all(np.array_equal(x.view(np.uint8), y.view(np.uint8))
+                            for x, y in zip(one, got))
+        got_v = at(w, lambda: store.load_decrypt_batch(ids, out=stage))[0]
+        same = same and np.array_equal(one_v.view(np.uint32),
+                                       got_v.view(np.uint32))
     out["bit_equal"] = bool(same)
-    print(f"pooled reads equal the carried ones bit for bit: {same}",
+    print(f"reads at widths {widths} equal width 1's bit for bit: {same}",
           flush=True)
 
     ids = rng.integers(0, args.rows, size=64 * 1_600)
-    widths = sorted({1, 2, 4, 8, full} & set(range(1, full + 1)))
-    scan = {"carried": median_ms(lambda: score(ids, carried=True), 7)}
-    for w in widths:
-        scan[f"width_{w}"] = median_ms(lambda: score(ids, width=w), 7)
+    scan = {f"width_{w}": at(w, lambda: median_ms(lambda: score(ids), 7))
+            for w in widths}
     out["scan_batch_ms"] = scan
     print("scan batch (102,400 candidates), ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in scan.items()), flush=True)
@@ -143,32 +152,40 @@ def main() -> int:
     for w in sorted({1, full}):
         for name, arr in (("drawn", ids), ("chunk_sorted", chunked),
                           ("sorted", np.sort(ids))):
-            order[f"{name}_width_{w}"] = median_ms(
-                lambda: score(arr, width=w), 7)
+            order[f"{name}_width_{w}"] = at(
+                w, lambda: median_ms(lambda: score(arr), 7))
     out["order_ms"] = order
     print("orders, ms: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in order.items()), flush=True)
 
     pids = rng.integers(0, args.rows, size=64 * 2_000)
     buf = np.zeros((len(pids), DIM), np.float32)
-    probe = {
-        "carried": median_ms(lambda: store.load_decrypt_batch(pids, out=buf),
-                             7),
-        f"width_{full}": median_ms(
-            lambda: parallel_read.decrypt_batch(store, pids, out=buf), 7)}
+    probe = {f"width_{w}": at(w, lambda: median_ms(
+        lambda: store.load_decrypt_batch(pids, out=buf), 7))
+        for w in sorted({1, full})}
     out["probe_batch_ms"] = probe
     print("probe staging batch (128,000 rows), ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in probe.items()), flush=True)
 
+    def pooled(fn):
+        inline, parallel_read.INLINE_BELOW = parallel_read.INLINE_BELOW, 0
+        try:
+            return fn()
+        finally:
+            parallel_read.INLINE_BELOW = inline
+
     small = {}
     for n in SMALL:
         sub = rng.integers(0, args.rows, size=n)
-        one = median_ms(lambda: score(sub, width=1), 200, pause=1e-3)
-        wide = median_ms(lambda: score(sub, width=full), 200, pause=1e-3)
-        small[n] = {"width_1": one, f"width_{full}": wide}
-        print(f"{n} candidates: width 1 {one:.4f} ms, width {full} "
-              f"{wide:.4f} ms", flush=True)
+
+        def timed():
+            return median_ms(lambda: score(sub), 200, pause=1e-3)
+        small[n] = {"served": timed(), "width_1": at(1, timed),
+                    f"pool_width_{full}": pooled(timed)}
+        print(f"{n} candidates, ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in small[n].items()), flush=True)
     out["small_ms"] = small
+    out["inline_below"] = parallel_read.INLINE_BELOW
     out["pool_threads"] = parallel_read.pool_threads()
     store.close()
     work.cleanup()

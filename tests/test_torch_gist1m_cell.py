@@ -6,7 +6,8 @@ margin 72) over 8,192 seeded rows: a sound run reads correct against the
 plain ``l2_exact`` reference, and the control (the program's int8 storage,
 the precision below the configuration's f16) reads not correct by
 ``dist_err``.  The counter adds each record that reached an AES-GCM open,
-at its ciphertext length, in both of the pooled reader's modes."""
+at its ciphertext length, in both of the store's read modes
+(``load_score_batch``, ``load_decrypt_batch``)."""
 
 import os
 import sys
@@ -86,14 +87,36 @@ def _store(path, dim, rng, n=300):
 
 
 def _opened(read):
-    before = profiler.totals()["counters"].get(COUNTER, 0)
+    """``read()``, the bytes it counted as opened and the threads that took
+    a chunk of it."""
+    c = profiler.totals()["counters"]
+    before = c.get(COUNTER, 0), c.get("store.open.workers", 0)
     ok = read()
-    return ok, profiler.totals()["counters"].get(COUNTER, 0) - before
+    c = profiler.totals()["counters"]
+    return (ok, c.get(COUNTER, 0) - before[0],
+            c.get("store.open.workers", 0) - before[1])
+
+
+# seconds for which a pooled case reads again until more than one thread
+# has taken a chunk of one read: whether a woken worker comes before the
+# caller has taken every chunk is up to the host's scheduler (on a host of
+# virtual cores, the first read to share its chunks came after 1 to 540
+# reads of 512 candidates)
+POOL_WAIT_S = 30
 
 
 @pytest.mark.parametrize("width", [1, 4])
 @pytest.mark.parametrize("dim,record", [(960, 1936), (128, 272)])
-def test_open_bytes_count_the_records_opened(tmp_path, dim, record, width):
+def test_open_bytes_count_the_records_opened(tmp_path, monkeypatch, dim,
+                                             record, width):
+    """The counter sums the records that reached an open, their tags good
+    or not, over every thread that took a chunk.  The reads here are below
+    :data:`~.parallel_read.INLINE_BELOW`, so at width 4 the threshold is
+    lowered to 0 for them to reach the pool."""
+    monkeypatch.setenv("FSPANN_THREADS", str(width))
+    if width > 1:
+        monkeypatch.setattr(parallel_read, "INLINE_BELOW", 0)
+    pooled = parallel_read.default_width() > 1
     rng = np.random.default_rng(dim + width)
     store, live = _store(str(tmp_path), dim, rng)
     assert store.record_ct_len == record
@@ -104,18 +127,26 @@ def test_open_bytes_count_the_records_opened(tmp_path, dim, record, width):
         ids = rng.permutation(np.concatenate([live, live, missing]))
         opened = 2 * len(live)
         q = rng.normal(size=(1, dim)).astype(np.float32)
-        norms = np.zeros(len(ids), np.float32)
-        dots = np.zeros(len(ids), np.float32)
-        ok, got = _opened(lambda: parallel_read.score_batch(
-            store, ids, q, len(ids), norms, dots, width=width))
-        assert int(ok.sum()) == opened - 2        # row 20's tag fails twice
-        assert got == opened * record
-        (_, ok), got = _opened(lambda: parallel_read.decrypt_batch(
-            store, ids, width=width))
-        assert int(ok.sum()) == opened - 2
-        assert got == opened * record
-        _, got = _opened(lambda: parallel_read.decrypt_batch(
-            store, missing, width=width))
+
+        def score():
+            norms = np.zeros(len(ids), np.float32)
+            dots = np.zeros(len(ids), np.float32)
+            return store.load_score_batch(ids, q, len(ids), norms, dots)
+
+        def decrypt():
+            return store.load_decrypt_batch(ids)[1]
+
+        for read in (score, decrypt):
+            most, deadline = 0, time.monotonic() + POOL_WAIT_S
+            while True:
+                ok, got, workers = _opened(read)
+                assert int(ok.sum()) == opened - 2  # row 20's tag fails twice
+                assert got == opened * record
+                most = max(most, workers)
+                if not pooled or most > 1 or time.monotonic() > deadline:
+                    break
+            assert most > 1 if pooled else most == 1
+        _, got, _ = _opened(lambda: store.load_decrypt_batch(missing))
         assert got == 0
     finally:
         store.close()

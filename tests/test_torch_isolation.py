@@ -17,7 +17,11 @@ unless its caller names another device, and nothing in the port asks
 ``torch.cuda.is_available()`` to pick the CPU.  The port's tracing is its
 own too: with its spans unwrapped, its counters dropped and the recorder's
 definitions and the ``SearchStats`` fields they fill taken out (``TRACE``),
-every carried module equals its source."""
+every carried module equals its source.  A carried module may hold members
+that are the port's own (``PORT_OWN``): a public one repairs the member of
+the same name in place and is held to the JAX package by a behaviour test
+instead, a private one is the port's helper for them; they are taken out of
+both trees, and every other member is still held equal."""
 
 import ast
 import glob
@@ -126,12 +130,22 @@ def _traced(node, name):
                for c in ast.walk(arg) if isinstance(c, ast.Call))
 
 
-class _WithoutSpans(ast.NodeTransformer):
-    """Takes the port's tracing out of a module: each ``with span("...")``
-    block becomes its body, ``count("...", n)`` statements go, and so do
-    the definitions ``trace`` names at the module's top level or in its
-    classes, and the module's statements that use one (the
-    ``gc.callbacks`` hook)."""
+# Members of carried modules that are the port's own, by module and
+# qualified name: taken out of the JAX package's tree and the port's alike.
+# A public one keeps its source's name and signature and is held to the JAX
+# package's member by a behaviour test; a private one is a helper the
+# source does not have.  The read: ``tests/test_torch_parallel_read.py``
+PORT_OWN = {
+    "store/point_store.py": {"PointStore.load_decrypt_batch",
+                             "PointStore.load_score_batch",
+                             "PointStore._open_records"},
+}
+
+
+class _WithoutNames(ast.NodeTransformer):
+    """Takes the definitions ``trace`` names (``name`` at the module's top
+    level, ``Class.name`` in its classes) out of a module, and the module's
+    statements that use one (the ``gc.callbacks`` hook)."""
 
     def __init__(self, trace=frozenset()):
         self.trace = trace
@@ -157,6 +171,12 @@ class _WithoutSpans(ast.NodeTransformer):
         self.generic_visit(node)
         node.body = self._keep(node.body, node.name + ".") or [ast.Pass()]
         return node
+
+
+class _WithoutSpans(_WithoutNames):
+    """Takes the port's tracing out of a module: each ``with span("...")``
+    block becomes its body, ``count("...", n)`` statements go, and so do
+    the definitions ``trace`` names."""
 
     def visit_With(self, node):
         self.generic_visit(node)
@@ -216,8 +236,9 @@ def _bindings(tree):
 def _check_carried(rel, port):
     """Asserts that the port's tree of the carried module ``rel`` equals its
     source, the port's tracing and its sanctioned differences set aside."""
-    src = _tree(os.path.join(JAX_PKG, rel))
-    port = _WithoutSpans(TRACE.get(rel, frozenset())).visit(port)
+    own = PORT_OWN.get(rel, frozenset())
+    src = _WithoutNames(own).visit(_tree(os.path.join(JAX_PKG, rel)))
+    port = _WithoutSpans(TRACE.get(rel, frozenset()) | own).visit(port)
     if rel in NATIVE_LIBS:
         assert _code(port, NATIVE_BUILD) == _code(src, NATIVE_BUILD)
         assert _bindings(port) == _bindings(src)
@@ -252,15 +273,14 @@ def _changed(rel, old, new):
     return tree
 
 
-_OPENED = "                ok[sel] = ok_v.astype(bool)\n        # absent"
-_COUNTED = ("                ok[sel] = ok_v.astype(bool)\n"
-            "            profiler.count(\"store.opened\", {})\n        # absent")
+_SEALED = "            aads = aad_batch(ids, kv, self.dim)\n"
+_COUNTED = _SEALED + "            profiler.count(\"store.sealed\", {})\n"
 
 
 @pytest.mark.parametrize("rel,old,new", [
-    # inside a span block: store.open's result
-    ("store/point_store.py", _OPENED,
-     "                ok[sel] = ~ok_v.astype(bool)\n        # absent"),
+    # inside a span block: store.seal's AADs
+    ("store/point_store.py", _SEALED,
+     "            aads = aad_batch(ids, kv + 1, self.dim)\n"),
     # inside a span block: the token's query digest
     ("query/token.py", "pt, digest_size=16).digest()))",
      "pt, digest_size=8).digest()))"),
@@ -270,14 +290,20 @@ _COUNTED = ("                ok[sel] = ok_v.astype(bool)\n"
     ("api/system.py", "        self._cache_gen += 1\n        return restored",
      "        return restored"),
     # a counter whose argument changes the state
-    ("store/point_store.py", _OPENED,
-     _COUNTED.format("len(sel) + ok.fill(False)")),
-], ids=["store-open", "token-seal", "store-constant", "system-undelete",
-        "mutating-count"])
+    ("store/point_store.py", _SEALED,
+     _COUNTED.format("len(ids) + ivs.fill(0)")),
+    # a member of a module with port-own members, not one of them: the
+    # store's arena open, which the port-own read calls
+    ("store/point_store.py",
+     "        if r is None or r.size != os.path.getsize(path):",
+     "        if r is None:"),
+], ids=["store-seal", "token-seal", "store-constant", "system-undelete",
+        "mutating-count", "store-open"])
 def test_carried_check_fails_on_a_changed_copy(rel, old, new):
     """A carried module changed inside a span block, or outside one, or
-    through a counter's argument, no longer equals its source once its
-    tracing is taken out."""
+    through a counter's argument, or in a member that is not the port's
+    own, no longer equals its source once its tracing and its port-own
+    members are taken out."""
     with pytest.raises(AssertionError):
         _check_carried(rel, _changed(rel, old, new))
 
@@ -285,8 +311,32 @@ def test_carried_check_fails_on_a_changed_copy(rel, old, new):
 def test_carried_check_admits_a_counter():
     """A counter of a string name and a length is the port's tracing."""
     _check_carried("store/point_store.py",
-                   _changed("store/point_store.py", _OPENED,
-                            _COUNTED.format("len(sel)")))
+                   _changed("store/point_store.py", _SEALED,
+                            _COUNTED.format("len(ids)")))
+
+
+def _members(tree):
+    """Qualified names of a module's top-level and class-level
+    definitions."""
+    out = set()
+    for st in tree.body:
+        out |= _names(st)
+        if isinstance(st, ast.ClassDef):
+            out |= {f"{st.name}.{n}" for s in st.body for n in _names(s)}
+    return out
+
+
+@pytest.mark.parametrize("rel,name", sorted(
+    (rel, name) for rel, names in PORT_OWN.items() for name in names))
+def test_port_own_names_a_member(rel, name):
+    """Every name in ``PORT_OWN`` is a member of the port's module.  A
+    public one is a member of the JAX package's module too (a repair in
+    place, never a fork beside it); a private one is not (a helper of the
+    port's own, never a carried member let go)."""
+    assert rel in CARRIED
+    assert name in _members(_tree(os.path.join(PORT, rel)))
+    public = not name.rsplit(".", 1)[-1].startswith("_")
+    assert (name in _members(_tree(os.path.join(JAX_PKG, rel)))) == public
 
 
 @pytest.mark.parametrize("rel", sorted(CARRIED_C))
