@@ -21,7 +21,9 @@ the device) and, by mode, the device state stage A reads:
   The table is built too, for the checkpoint.
 
 After finalize, ``append_rows`` (scan mode) inserts live: new rows fill the
-capacity padding in place, or grow the state past it; the table goes stale.
+capacity padding in place, or grow the state past it; on the host they are
+written into the spare rows of the code and row-id buffers, which regrow
+geometrically; the table goes stale.
 ``save_table`` / ``load_table`` read and write the JAX package's
 ``table.npz`` format.
 
@@ -65,6 +67,32 @@ def _consume_concat(chunks: list[np.ndarray]) -> np.ndarray:
     return out
 
 
+# fewest spare rows a live insert's regrowth reserves, on the device (when
+# capacity-padded) and on the host; above 8x this many rows, an eighth
+GROW_MIN_ROWS = 4096
+
+
+def _headroom(n: int) -> int:
+    return max(n // 8, GROW_MIN_ROWS)
+
+
+def _append_into(buf: np.ndarray | None, view: np.ndarray,
+                 new: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+    """(buffer, ``buffer[:len(view) + len(new)]``, bytes copied): ``new``
+    written after ``view``'s rows into ``buf``'s spare rows when ``view``
+    is its prefix and they suffice, else into a fresh buffer with
+    ``_headroom`` spare rows, where the prefix is copied once.  No row of
+    ``view`` is written, so a view taken earlier keeps its rows."""
+    n, k = len(view), len(new)
+    grown = 0
+    if buf is None or view.base is not buf or n + k > len(buf):
+        buf = np.empty((n + k + _headroom(n),) + view.shape[1:], view.dtype)
+        buf[:n] = view
+        grown = view.nbytes
+    buf[n:n + k] = new
+    return buf, buf[:n + k], grown
+
+
 class PartitionedIndex:
     SAMPLE_THRESHOLD = 1000   # reference PartitionedIndexService.java:50-51
 
@@ -94,6 +122,10 @@ class PartitionedIndex:
         self._scan_state: hamming_scan.ScanState | \
             hamming_scan.PackedScanState | None = None
         self._scan_codes: np.ndarray | None = None
+        # the buffers append_rows writes into: _scan_codes and _row_ids are
+        # their exact-length prefixes once a live insert has run
+        self._codes_buf: np.ndarray | None = None
+        self._ids_buf: np.ndarray | None = None
         # set by append_rows: the frozen partition table no longer covers
         # all rows; the probe path refuses to route until re-finalized
         self._table_stale = False
@@ -395,7 +427,7 @@ class PartitionedIndex:
                     # Exact-fit builds (scan_capacity_rows == 0) grow
                     # exactly.
                     grow = 0 if rt.scan_capacity_rows == 0 \
-                        else max(self._scan_rows // 8, 4096)
+                        else _headroom(self._scan_rows)
                     rows = torch.cat([rows[:lo], body,
                                       body.new_zeros((grow,)
                                                      + body.shape[1:])])
@@ -413,9 +445,14 @@ class PartitionedIndex:
                     popc = hamming_scan.update_rows(st.popc, new_popc, lo)
                 self._scan_state = type(st)(rows, popc)
         with span("index.append.host_copy"):
-            # native-only serving: the packed codes ARE the scan state
-            self._scan_codes = np.concatenate([self._scan_codes, codes])
-            self._row_ids = np.concatenate([self._row_ids, ids])
+            # native-only serving: the packed codes ARE the scan state.
+            # Only the new rows are written; the arrays regrow (amortised
+            # O(rows) over an insert stream) when their spare rows run out
+            self._codes_buf, self._scan_codes, grown = _append_into(
+                self._codes_buf, self._scan_codes, codes)
+            self._ids_buf, self._row_ids, grown_ids = _append_into(
+                self._ids_buf, self._row_ids, ids)
+            profiler.count("index.append.host_grow_bytes", grown + grown_ids)
         self._dense = bool(self._dense and len(ids)
                            and ids[0] == self._n_rows
                            and np.array_equal(
