@@ -119,14 +119,16 @@ class ForwardSecureANNSystem:
                      limit: int | None = None) -> int:
         """Stream a corpus (array or vecs file path) into the system
         (reference indexStream:438; ids are file ordinals)."""
-        if isinstance(data, str):
-            data = loaders.load_vectors(data)
-        total = 0
-        for start, batch in loaders.stream_batches(data, batch_size, limit):
-            ids = np.arange(start, start + len(batch), dtype=np.int64)
-            self.batch_insert(ids, batch)
-            total += len(batch)
-        return total
+        with span("system.index_stream"):
+            if isinstance(data, str):
+                data = loaders.load_vectors(data)
+            total = 0
+            for start, batch in loaders.stream_batches(data, batch_size,
+                                                       limit):
+                ids = np.arange(start, start + len(batch), dtype=np.int64)
+                self.batch_insert(ids, batch)
+                total += len(batch)
+            return total
 
     def insert_live(self, ids: np.ndarray, vecs: np.ndarray) -> None:
         """Insert AFTER finalize, searchable immediately — beyond the
@@ -145,11 +147,12 @@ class ForwardSecureANNSystem:
             self._cache_gen += 1
 
     def finalize_for_search(self) -> None:
-        self.insert_buffer.flush()
-        with self.profiler.timed("finalize"):
-            self.index.finalize()
-        self.store.meta.save_index_version(self.km.current_version)
-        self.store.flush()
+        with span("system.finalize"):
+            self.insert_buffer.flush()
+            with self.profiler.timed("finalize"):
+                self.index.finalize()
+            self.store.meta.save_index_version(self.km.current_version)
+            self.store.flush()
 
     def delete(self, ids) -> None:
         self.store.delete(ids)

@@ -155,6 +155,13 @@ class RuntimeConfig:
     # Round-5 diagnostic: the full order recovers the entire lambda=3
     # truncation loss on the glove family (diag_lambda3.jsonl).
     wide_keys: str = "off"
+    # The port's own field (the JAX package has none): host threads of the
+    # set-up's host work (the ingest's encode chunks with encode_backend
+    # "cpu", the partition tables' sorts).  0 = every core this process
+    # may run on (store/parallel_read.default_width()), n > 0 = n threads,
+    # 1 the caller's alone.  The results are the same at any width; queries
+    # and live inserts always encode on the caller's thread.
+    setup_threads: int = 0
 
     def wide_keys_active(self, code_bits: int) -> bool:
         """Resolve the wide-key mode for a per-group code width."""

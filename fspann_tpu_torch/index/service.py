@@ -44,6 +44,7 @@ from .. import resolve_device
 from ..config import SystemConfig
 from ..ops import coding, hamming_scan, native_scan, partition, routing
 from ..ops.partition import PartitionTable
+from ..store import parallel_read
 from ..utils import profiler
 from ..utils.profiler import span
 
@@ -258,18 +259,29 @@ class PartitionedIndex:
             return
         self._encode_staged(ids, vecs)
 
-    def _encode(self, vecs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def _setup_width(self) -> int:
+        """Host threads of the set-up's encode and table sorts."""
+        n = self.cfg.runtime.setup_threads
+        if n < 0:
+            raise ValueError(f"setup_threads must be >= 0, got {n}")
+        return n or parallel_read.default_width()
+
+    def _encode(self, vecs: np.ndarray, width: int = 1
+                ) -> tuple[np.ndarray, np.ndarray]:
         """(uint32 codes [n, G, W], int64 keys [n, G]) on the host, encoded
-        by the configured backend: numpy BLAS, or the index device."""
+        by the configured backend: numpy BLAS (on ``width`` host threads),
+        or the index device."""
         if self.cfg.runtime.encode_backend == "cpu":
-            return coding.encode_numpy(vecs, self._host_bank())
+            return coding.encode_numpy(vecs, self._host_bank(), width=width)
         codes, keys = coding.encode(
             torch.from_numpy(np.ascontiguousarray(vecs, np.float32))
             .to(self.device), self._dev_bank())
         return coding.words_to_numpy(codes), keys.cpu().numpy()
 
     def _encode_staged(self, ids: np.ndarray, vecs: np.ndarray) -> None:
-        codes, keys = self._encode(vecs)
+        with span("index.encode"):
+            # the set-up's ingest: the host encode on the set-up's threads
+            codes, keys = self._encode(vecs, self._setup_width())
         self._codes.append(codes)
         self._keys.append(keys)
         self._ids.append(ids)
@@ -341,33 +353,42 @@ class PartitionedIndex:
             else:
                 self._scan_state = self._make_scan_state(codes)
                 self._sync()
-            self.finalize_sec["scan_upload"] = time.perf_counter() - t0
+            # the phase is named by the layout served: "bits" (the int8
+            # bit matrix), "packed" (int32 words) or "native" (none)
+            layout = "native" if self._scan_state is None else "packed" \
+                if isinstance(self._scan_state, hamming_scan.PackedScanState) \
+                else "bits"
+            self.finalize_sec[f"scan_upload_{layout}"] = \
+                time.perf_counter() - t0
         wide = self._wide_keys()
         t0 = time.perf_counter()
-        if rt.encode_backend == "cpu":
-            # sort/build on the host too (numpy), then ship the compact
-            # table to the device in one transfer
-            table = partition.build_partitions_numpy(
-                np.ascontiguousarray(keys.T),
-                np.ascontiguousarray(np.transpose(codes, (1, 0, 2))),
-                rt.block_size, wide=wide)
-            self.finalize_sec["table_build"] = time.perf_counter() - t0
-            self._table_host = table
-            t0 = time.perf_counter()
-            self.table = partition.table_to(table, self.device)
-            self._sync()
-            self.finalize_sec["table_upload"] = time.perf_counter() - t0
-        else:
-            # the codes cross to the device once; the re-rank copy is reused
-            codes_dev = self.point_codes if self.point_codes is not None \
-                else coding.words_to_torch(codes, self.device)
-            self.table = partition.build_partitions(
-                torch.from_numpy(keys).to(self.device).T.contiguous(),
-                codes_dev.permute(1, 0, 2).contiguous(), rt.block_size,
-                wide=wide)
-            del codes_dev
-            self._sync()
-            self.finalize_sec["table_build"] = time.perf_counter() - t0
+        with span("index.finalize.tables"):
+            if rt.encode_backend == "cpu":
+                # sort/build on the host too (numpy, on the set-up's
+                # threads, over group-major views: nothing is copied
+                # group-major), then ship the compact table to the device
+                # in one transfer
+                table = partition.build_partitions_numpy(
+                    keys.T, np.transpose(codes, (1, 0, 2)), rt.block_size,
+                    wide=wide, width=self._setup_width())
+                self.finalize_sec["table_build"] = time.perf_counter() - t0
+                self._table_host = table
+                t0 = time.perf_counter()
+                self.table = partition.table_to(table, self.device)
+                self._sync()
+                self.finalize_sec["table_upload"] = time.perf_counter() - t0
+            else:
+                # the codes cross to the device once; the re-rank copy is
+                # reused
+                codes_dev = self.point_codes if self.point_codes is not None \
+                    else coding.words_to_torch(codes, self.device)
+                self.table = partition.build_partitions(
+                    torch.from_numpy(keys).to(self.device).T.contiguous(),
+                    codes_dev.permute(1, 0, 2).contiguous(), rt.block_size,
+                    wide=wide)
+                del codes_dev
+                self._sync()
+                self.finalize_sec["table_build"] = time.perf_counter() - t0
         self._n_rows = len(ids)
         self._codes.clear(); self._keys.clear(); self._ids.clear()
         self.frozen = True

@@ -37,12 +37,17 @@ the two encoders — corpus and queries must be encoded on the same backend.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
+import functools
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiler, threads
 from . import threefry
 from .refine import full_fp32_matmul
 
@@ -419,8 +424,77 @@ def encode(x: torch.Tensor, bank: GBank, chunk: int = 16_384
 # Host (numpy) encode path — used when ingestion runs on the host
 # ----------------------------------------------------------------------------
 
-def encode_numpy(x: np.ndarray, bank: GBank,
-                 chunk: int = 4096) -> tuple[np.ndarray, np.ndarray]:
+# rows a pool thread encodes at a time in :func:`encode_numpy`.  On the
+# H100 host's 8 cores, 1M rows of 3,072-bit codes took, in three runs of
+# ``scripts/torch_build_bench.py``, 4.6 / 5.5 / 3.4 s at 1,024 rows a
+# thread against 6.6 / 6.4 / 3.2 at 512; 7.1 and 5.1 at 2,048, 17.2 at
+# 4,096 and 7.0 at 256
+POOL_ROWS = 1024
+
+# the functions that read and set the thread count of a process's
+# OpenBLAS, under the names numpy's wheels (scipy-openblas, 64-bit
+# integers), older wheels and plain builds give them
+_BLAS_THREADS = (
+    ("scipy_openblas_get_num_threads64_", "scipy_openblas_set_num_threads64_"),
+    ("openblas_get_num_threads64_", "openblas_set_num_threads64_"),
+    ("openblas_get_num_threads", "openblas_set_num_threads"))
+_BLAS_LOCK = threading.Lock()
+
+
+@functools.cache
+def _numpy_blas_threads():
+    """(get, set) of the thread count of the OpenBLAS numpy's products run
+    on, found among the libraries this process has mapped (numpy's own
+    first); None where numpy's BLAS is another."""
+    try:
+        with open("/proc/self/maps") as f:
+            paths = sorted({ln.split()[-1] for ln in f
+                            if "openblas" in ln.rsplit("/", 1)[-1].lower()},
+                           key=lambda path: "numpy" not in path)
+    except OSError:
+        return None
+    for path in paths:
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            continue
+        for get, set_ in _BLAS_THREADS:
+            if hasattr(lib, get) and hasattr(lib, set_):
+                get, set_ = getattr(lib, get), getattr(lib, set_)
+                get.argtypes, get.restype = [], ctypes.c_int
+                set_.argtypes, set_.restype = [ctypes.c_int], None
+                return get, set_
+    return None
+
+
+@contextlib.contextmanager
+def _one_blas_thread():
+    """numpy's products on one thread each while the block runs: a pool's
+    workers that each run a product would otherwise each start a BLAS team
+    as wide as the host (the pooled encode of 1M rows at d 96, 3,072 bits,
+    took 26.2 s with the teams against 6.4 s without on the H100 host's 8
+    cores; ``scripts/torch_build_bench.py``).  OpenBLAS keeps the count
+    for the whole process, so the block holds a lock and sets the count
+    back after it; a numpy product that another thread runs meanwhile runs
+    on one thread too, which is why only the set-up's ingest, which no
+    query overlaps, takes it.  With another BLAS nothing is set, which
+    changes the time and not the result."""
+    fns = _numpy_blas_threads()
+    if fns is None:
+        yield
+        return
+    get, set_ = fns
+    with _BLAS_LOCK:
+        before = get()
+        set_(1)
+        try:
+            yield
+        finally:
+            set_(before)
+
+
+def encode_numpy(x: np.ndarray, bank: GBank, chunk: int = 4096,
+                 width: int = 1) -> tuple[np.ndarray, np.ndarray]:
     """Same pipeline as :func:`encode` in pure numpy (BLAS matmul + packing).
 
     Used for host-side ingestion (``runtime.encode_backend="cpu"``) where a
@@ -436,7 +510,15 @@ def encode_numpy(x: np.ndarray, bank: GBank,
     bandwidth-starved serving host those passes — not the BLAS — dominated
     the whole 1M build (profile_build.py: encode 225 s of 236 s insert;
     chunking cuts it ~4x).  Per-chunk results are bit-identical to the
-    whole-batch computation (all ops are elementwise or row-local)."""
+    whole-batch computation (all ops are elementwise or row-local), so
+    with ``width`` > 1 (the set-up's ingest, ``index/service``) a call of
+    more than one chunk runs on ``width`` host threads (numpy releases the
+    interpreter lock inside each step), each taking
+    :data:`POOL_ROWS` rows at a time, with numpy's BLAS on one thread
+    meanwhile (:func:`_one_blas_thread`).  Other calls run on the caller's
+    thread.  A call of more than one chunk adds 1 to the counter
+    ``index.encode.calls`` and the threads that took its rows to
+    ``index.encode.workers``."""
     a = np.asarray(bank.alpha, np.float32)
     r = np.asarray(bank.r, np.float32)
     om = np.asarray(bank.omega, np.float32)
@@ -449,7 +531,10 @@ def encode_numpy(x: np.ndarray, bank: GBank,
     pad = w * 32 - lam * m
     codes = np.empty((n, g, w), np.uint32)
     keys = np.empty((n, g), np.int64)
-    for lo in range(0, n, chunk):
+    took = set()
+
+    def encode_chunk(lo: int) -> None:
+        took.add(threading.get_ident())
         xs = x[lo:lo + chunk]
         y = (xs @ a2).reshape(len(xs), g, m)
         h = np.floor((y + r) / om).astype(np.int32)
@@ -470,4 +555,14 @@ def encode_numpy(x: np.ndarray, bank: GBank,
         if w > 1:
             k = k | (c[..., 1].astype(np.int64) >> 1)
         keys[lo:lo + len(xs)] = k
+
+    chunks = -(-n // chunk)
+    width = min(chunks, width)
+    if width > 1:
+        chunk = min(chunk, POOL_ROWS)      # encode_chunk reads ``chunk``
+    with _one_blas_thread() if width > 1 else contextlib.nullcontext():
+        threads.map_threads(encode_chunk, range(0, n, chunk), width)
+    if chunks > 1:
+        profiler.count("index.encode.calls")
+        profiler.count("index.encode.workers", len(took))
     return codes, keys

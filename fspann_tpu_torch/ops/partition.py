@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import threads
 from . import coding
 
 INT64_MAX = int(np.iinfo(np.int64).max)
@@ -157,12 +158,16 @@ def build_partitions(keys: torch.Tensor, codes: torch.Tensor,
 
 
 def build_partitions_numpy(keys: "np.ndarray", codes: "np.ndarray",
-                           block_size: int = 64,
-                           wide: bool = False) -> PartitionTable:
+                           block_size: int = 64, wide: bool = False,
+                           width: int = 1) -> PartitionTable:
     """Host-side build with the same layout/semantics as
     :func:`build_partitions` (ties break by id); the result is a table of
     numpy arrays (``codes`` and ``rep_codes`` uint32) ready for one
-    :func:`table_to`."""
+    :func:`table_to`.  The G groups sort on ``width`` host threads.
+    ``keys`` [G, N] and ``codes`` [G, N, W] may be strided views of the
+    point-major arrays: each group's keys are read by its own sort, and of
+    the codes only each block's middle row is gathered (with ``wide``, the
+    words of the second key are read too)."""
     g, n = keys.shape
     b = block_size
     p = -(-n // b)
@@ -173,7 +178,8 @@ def build_partitions_numpy(keys: "np.ndarray", codes: "np.ndarray",
     skeys = np.empty((g, p * b), np.int64)
     sids = np.empty((g, p * b), np.int32)
     skeys2 = np.empty((g, p * b), np.int64) if wide else None
-    for gi in range(g):
+
+    def sort_group(gi: int) -> None:
         if wide:
             order = np.lexsort((ids0, keys2[gi], keys[gi]))
             skeys2[gi, :n] = keys2[gi][order]
@@ -181,6 +187,10 @@ def build_partitions_numpy(keys: "np.ndarray", codes: "np.ndarray",
             order = np.lexsort((ids0, keys[gi]))
         skeys[gi, :n] = keys[gi][order]
         sids[gi, :n] = ids0[order]
+
+    # the groups' sorts and gathers are independent (numpy releases the
+    # interpreter lock inside them): one host thread a group at a time
+    threads.map_threads(sort_group, range(g), min(g, width))
     if pad:
         skeys[:, n:] = np.iinfo(np.int64).max
         sids[:, n:] = -1

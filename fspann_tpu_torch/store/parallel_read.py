@@ -11,7 +11,9 @@ knows nothing of the store.
 The pool is as wide as the cores this process may run on, capped by
 ``FSPANN_THREADS`` where that is set.  A read of fewer than
 :data:`INLINE_BELOW` candidates runs on the caller's thread alone: waking
-the pool costs more than it saves there.
+the pool costs more than it saves there.  The set-up's host work (the
+encode's chunks, the partition tables' sorts) runs as wide, on
+``utils/threads.map_threads``.
 """
 
 from __future__ import annotations

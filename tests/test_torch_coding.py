@@ -8,7 +8,9 @@ product with its float32 reciprocal that XLA compiles.  With the JAX bank
 carried across (``api.convert.bank_from_jax``) both packages' host encoders
 give bit-identical codes and keys."""
 
+import ast
 import inspect
+import textwrap
 
 import numpy as np
 import pytest
@@ -53,9 +55,32 @@ def test_bank_from_jax_encodes_bit_identically(rng, m, lam, tables,
     np.testing.assert_array_equal(tk, np.asarray(dk))
 
 
+def _encode_parts(fn):
+    """``fn``'s statements before its chunks, and the work of one chunk:
+    the body of the JAX package's ``for lo in range(0, n, chunk)`` loop,
+    or of the port's ``encode_chunk``, less the line that notes the thread
+    that took the chunk.  Docstrings left out."""
+    body = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0].body[1:]
+    loop = next(i for i, st in enumerate(body)
+                if isinstance(st, (ast.For, ast.FunctionDef)))
+    work = body[loop].body
+    if isinstance(body[loop], ast.FunctionDef):
+        assert "took.add" in ast.unparse(work[0])
+        work = work[1:]
+    return ([ast.dump(st) for st in body[:loop]],
+            [ast.dump(st) for st in work])
+
+
 def test_encode_numpy_is_carried_verbatim():
-    assert inspect.getsource(coding.encode_numpy) == \
-        inspect.getsource(jcoding.encode_numpy)
+    """The port's host encode is the JAX package's: the same set-up and,
+    chunk by chunk, the same arithmetic; only the chunks' scheduling (a
+    pool of host threads) is the port's own."""
+    port_setup, port_chunk = _encode_parts(coding.encode_numpy)
+    jax_setup, jax_chunk = _encode_parts(jcoding.encode_numpy)
+    assert port_chunk == jax_chunk and len(jax_chunk) > 10
+    assert port_setup[:len(jax_setup)] == jax_setup
+    assert port_setup[len(jax_setup):] == [ast.dump(ast.parse(
+        "took = set()").body[0])]
 
 
 def test_own_bank_deterministic_unit_rows_positive_widths(rng):

@@ -20,8 +20,10 @@ definitions and the ``SearchStats`` fields they fill taken out (``TRACE``),
 every carried module equals its source.  A carried module may hold members
 that are the port's own (``PORT_OWN``): a public one repairs the member of
 the same name in place and is held to the JAX package by a behaviour test
-instead, a private one is the port's helper for them; they are taken out of
-both trees, and every other member is still held equal."""
+instead, a private one is the port's helper for them, and a public field
+the source lacks is an option of the port's own, with a default, after the
+source's fields; they are taken out of both trees, and every other member
+is still held equal."""
 
 import ast
 import glob
@@ -134,8 +136,11 @@ def _traced(node, name):
 # qualified name: taken out of the JAX package's tree and the port's alike.
 # A public one keeps its source's name and signature and is held to the JAX
 # package's member by a behaviour test; a private one is a helper the
-# source does not have.  The read: ``tests/test_torch_parallel_read.py``
+# source does not have; a dataclass field is an option the source lacks,
+# whose default keeps the source's behaviour.  The read:
+# ``tests/test_torch_parallel_read.py``
 PORT_OWN = {
+    "config.py": {"RuntimeConfig.setup_threads"},
     "store/point_store.py": {"PointStore.load_decrypt_batch",
                              "PointStore.load_score_batch",
                              "PointStore._open_records"},
@@ -326,17 +331,42 @@ def _members(tree):
     return out
 
 
+def _fields(tree, cls):
+    """(name, has a default) of class ``cls``'s annotated fields, in
+    order."""
+    node = next(s for s in tree.body
+                if isinstance(s, ast.ClassDef) and s.name == cls)
+    return [(s.target.id, s.value is not None) for s in node.body
+            if isinstance(s, ast.AnnAssign)
+            and isinstance(s.target, ast.Name)]
+
+
 @pytest.mark.parametrize("rel,name", sorted(
     (rel, name) for rel, names in PORT_OWN.items() for name in names))
 def test_port_own_names_a_member(rel, name):
     """Every name in ``PORT_OWN`` is a member of the port's module.  A
     public one is a member of the JAX package's module too (a repair in
-    place, never a fork beside it); a private one is not (a helper of the
-    port's own, never a carried member let go)."""
+    place, never a fork beside it), or else a field of the port's own with
+    a default, after every field of the source's class (an option the
+    source lacks: a call written for the source binds as before); a private
+    one is not (a helper of the port's own, never a carried member let
+    go)."""
     assert rel in CARRIED
-    assert name in _members(_tree(os.path.join(PORT, rel)))
+    port = _tree(os.path.join(PORT, rel))
+    src = _tree(os.path.join(JAX_PKG, rel))
+    assert name in _members(port)
     public = not name.rsplit(".", 1)[-1].startswith("_")
-    assert (name in _members(_tree(os.path.join(JAX_PKG, rel)))) == public
+    in_source = name in _members(src)
+    if public and not in_source:
+        cls, field = name.split(".")
+        fields = _fields(port, cls)
+        theirs = [f for f, _ in _fields(src, cls)]
+        at = [f for f, _ in fields].index(field)
+        assert dict(fields)[field], f"{name} has no default"
+        assert not set(theirs) & {f for f, _ in fields[at:]}, \
+            f"{name} comes before a field of the source"
+    else:
+        assert in_source == public
 
 
 @pytest.mark.parametrize("rel", sorted(CARRIED_C))
