@@ -411,19 +411,22 @@ def reset_launches() -> None:
     from fspann_tpu_torch.ops.approx_topk import partial_reduce
     from fspann_tpu_torch.ops.code_hamming import code_hamming
     from fspann_tpu_torch.ops.l2_topk import l2_topk
+    from fspann_tpu_torch.ops.packed_dots import packed_dots
 
     l2_topk.launches = code_hamming.launches = partial_reduce.launches = 0
-    partial_reduce.tail_launches = 0
+    partial_reduce.tail_launches = packed_dots.launches = 0
 
 
 def read_launches() -> dict:
     from fspann_tpu_torch.ops.approx_topk import partial_reduce
     from fspann_tpu_torch.ops.code_hamming import code_hamming
     from fspann_tpu_torch.ops.l2_topk import l2_topk
+    from fspann_tpu_torch.ops.packed_dots import packed_dots
 
     return {"l2_topk": l2_topk.launches, "code_hamming": code_hamming.launches,
             "approx_topk": partial_reduce.launches,
-            "approx_topk_tail": partial_reduce.tail_launches}
+            "approx_topk_tail": partial_reduce.tail_launches,
+            "packed_dots": packed_dots.launches}
 
 
 def scan_call(idx, queries, approx: bool = True):
@@ -1443,7 +1446,7 @@ def phase_packed(dev, unpacked_ms: float) -> None:
         f" MB vs {flat.bits.numel() / 1e6:.1f} MB unpacked), CUDA == CPU; "
         f"packed chunked == unpacked flat on every field, Q in (64, 7, 1); "
         f"update_rows in place == fresh build; native host == CUDA at Q=64. "
-        f"Q=64: packed {ms_route:.3f} ms (default chunk: one whole unpack), "
+        f"Q=64: packed {ms_route:.3f} ms (default chunk: one block), "
         f"{ms_chunk:.3f} ms (chunk 32768), unpacked flat {unpacked_ms:.3f} "
         f"ms (phase 4), native host {native_ms:.1f} ms "
         f"({native_scan._num_threads()} thread(s)); one packed scan's "
@@ -2765,6 +2768,8 @@ def main() -> int:
     require(multi_counts["approx_topk"] > 0
             and multi_counts["code_hamming"] > 0, "phase 17 did not run "
             "approx_topk and code_hamming")
+    require(deep_counts["packed_dots"] > 0, "phase 19's packed route did "
+            "not run packed_dots")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2784,7 +2789,11 @@ def main() -> int:
         "launches": sum(c["approx_topk"] for c in paths),
         "tail_launches": sum(c["approx_topk_tail"] for c in paths),
         **approx_rec,
-        "points": {k: p["approx"] for k, p in points.items()}}]}),
+        "points": {k: p["approx"] for k, p in points.items()}}, {
+        "name": "packed_dots", "route": "cuda",
+        "source": "fspann_tpu_torch/csrc/packed_dots.cu",
+        "replaces": "fspann_tpu/ops/hamming_scan.py:244",
+        "launches": sum(c["packed_dots"] for c in paths)}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

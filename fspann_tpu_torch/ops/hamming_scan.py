@@ -8,7 +8,8 @@ top-L.  This replaces the reference's whole stage-A machinery (probe queue
 over partitions, PartitionedIndexService.java:592-715) with an exact global
 fine ranking.  Device memory: N·B int8 bytes (3.07 GB at 1M × 3,072 bits),
 or, with the packed state (:class:`PackedScanState`), 4 bytes per 32 code
-bits (0.38 GB at the same size).
+bits (0.38 GB at the same size), scored straight from the words
+(``ops/packed_dots``).
 
 The product is ``torch._int_mm`` (exact int8 → int32).  Its CUDA path wants
 more than 16 rows in the first operand and widths that are multiples of 8,
@@ -32,9 +33,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.profiler import span
+from ..utils.profiler import count, span
 from .approx_topk import _DEAD, _rank_topk, approx_rank_topk
 from .coding import words_to_torch
+from .packed_dots import packed_dots
 from .routing import _INF, RouteResult
 
 # byte -> popcount
@@ -50,11 +52,11 @@ class ScanState(NamedTuple):
 class PackedScanState(NamedTuple):
     """Scan state kept PACKED on the device: 8× fewer resident bytes than
     the int8 bit matrix, so a card holds 8× more rows.  :func:`scan_chunked`
-    unpacks one chunk at a time right before its bit product; the unpack
-    scratch is one chunk's worth, released between steps.  The cost is
-    more device traffic per scan than the unpacked state (the words are
-    read, unpacked and the bit block read again), so the unpacked state
-    stays the default whenever it fits."""
+    scores one chunk at a time straight from its words
+    (``ops/packed_dots``: the tensor-core kernel on the card, which never
+    writes the chunk's bits; on the CPU the unpack and the int8 product);
+    the products are the scratch, one chunk's worth, released between
+    steps."""
 
     words: torch.Tensor  # int32 [N, G, W] bit patterns of the uint32 words
     popc: torch.Tensor   # int32 [N] popcount per point
@@ -180,6 +182,19 @@ def _bit_dots(qbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return dots[:q]
 
 
+def _products(qbits: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int32 [Q, C] bit products of the query bits and ``rows``: int8 bits
+    [C, B], or packed words [C, G, W] (``ops/packed_dots``, ``B / G`` code
+    bits a group).  Counts the rows scored (``scan.rows``) and, packed,
+    those scored from the words (``scan.packed_rows``) under the open
+    request."""
+    count("scan.rows", len(rows))
+    if rows.dim() == 3:
+        count("scan.packed_rows", len(rows))
+        return packed_dots(qbits, rows, qbits.shape[1] // rows.shape[1])
+    return _bit_dots(qbits, rows)
+
+
 def _adaptive_count(scores: torch.Tensor, anchor: int, margin: int,
                     floor: int, k: int) -> torch.Tensor:
     """Per-query adaptive decrypt budget from the ranked score matrix.
@@ -248,12 +263,20 @@ def scan(state: ScanState, qbits: torch.Tensor, tombstones: torch.Tensor,
         adaptive decrypt budget (:func:`_adaptive_count`) in
         ``RouteResult.n_dec``.
     """
-    n = state.bits.shape[0]
+    return _scan(state.bits, state.popc, qbits, tombstones, limit, approx,
+                 anchor, margin, floor)
+
+
+def _scan(rows: torch.Tensor, popc: torch.Tensor, qbits: torch.Tensor,
+          tombstones: torch.Tensor, limit: int, approx: bool, anchor: int,
+          margin: int, floor: int) -> RouteResult:
+    """:func:`scan` over ``rows`` in either layout (:func:`_products`)."""
+    n = rows.shape[0]
     k = min(limit, n)
     with span("scan.products"):
-        dots = _bit_dots(qbits, state.bits)
+        dots = _products(qbits, rows)
     with span("scan.select"):
-        sc, idx = _select(dots, state.popc, tombstones, k, 0, approx)
+        sc, idx = _select(dots, popc, tombstones, k, 0, approx)
     with span("scan.finish"):
         return _finish(sc, idx, qbits, n, anchor, margin, floor, k)
 
@@ -262,7 +285,8 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
                      popc_c: torch.Tensor, dead_c: torch.Tensor, start: int,
                      start_c: int, carry: tuple, approx: bool,
                      width: int | None = None) -> tuple:
-    """One chunked-scan step: score ``bits_c`` (int8 [chunk, B]) against
+    """One chunked-scan step: score ``bits_c`` (int8 bits [chunk, B], or
+    int32 words [chunk, G, W] scored straight from the words) against
     ``qbits``, mask dead + tail-duplicate rows (``start_c`` is the clamped
     slice origin; rows with index < ``start`` were already scanned), take
     the chunk top-k, and 2-key-merge (score, id) into the running carry.
@@ -274,7 +298,7 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
     chunk = bits_c.shape[0]
     ridx = start_c + torch.arange(chunk, dtype=torch.int64,
                                   device=popc_c.device)
-    sc, cid = _select(_bit_dots(qbits, bits_c), popc_c,
+    sc, cid = _select(_products(qbits, bits_c), popc_c,
                       dead_c | (ridx < start), k, start_c, approx, width)
     cid = torch.where(sc < _DEAD, cid, torch.full_like(cid, -1))
     # merge with carry: rank (score, id) over the 2k union; dead entries
@@ -287,16 +311,15 @@ def scan_chunk_merge(qbits: torch.Tensor, bits_c: torch.Tensor,
 
 
 def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
-                qbits: torch.Tensor, limit: int, chunk: int,
-                code_bits: int = 0, *, approx: bool = True
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                qbits: torch.Tensor, limit: int, chunk: int, *,
+                approx: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The running top-k loop of the chunked scan, shared by
     :func:`scan_chunked` and the sharded packed step
     (``parallel/sharded.scan_route_step_fn_packed``): ``rows`` (int8 bits
-    [n, B], or int32 words [n, G, W] when ``code_bits`` > 0, unpacked one
-    block at a time) go through :func:`scan_chunk_merge` in ``chunk``-row
-    blocks.  Returns the carry ``(part int32 [Q, k], row int32 [Q, k])``,
-    ``k = min(limit, chunk, n)``, dead entries ``(_DEAD, -1)``.
+    [n, B], or int32 words [n, G, W], scored from the words) go through
+    :func:`scan_chunk_merge` in ``chunk``-row blocks.  Returns the carry
+    ``(part int32 [Q, k], row int32 [Q, k])``, ``k = min(limit, chunk,
+    n)``, dead entries ``(_DEAD, -1)``.
 
     Every block's approximate selection bins as the JAX package's
     ``chunk``-row block (``width=chunk``).  JAX scans its tail as a whole
@@ -316,11 +339,8 @@ def scan_chunks(rows: torch.Tensor, popc: torch.Tensor, dead: torch.Tensor,
     for start in range(0, n, chunk):
         start_c = start if n - start >= k else n - chunk
         sl = slice(start_c, min(start_c + chunk, n))
-        bits_c = unpack_bits_device(rows[sl], code_bits) if code_bits > 0 \
-            else rows[sl]
-        carry = scan_chunk_merge(qbits, bits_c, popc[sl], dead[sl], start,
+        carry = scan_chunk_merge(qbits, rows[sl], popc[sl], dead[sl], start,
                                  start_c, carry, approx=approx, width=chunk)
-        del bits_c            # the unpack scratch goes before the next step
     return carry
 
 
@@ -332,9 +352,9 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     running top-L merge (:func:`scan_chunks`) — the [Q, N] rank intermediate
     becomes [Q, chunk], so memory stays flat as N grows.
 
-    With a :class:`PackedScanState` (pass ``code_bits``) each chunk's words
-    are unpacked on the device right before the bit product; the packed
-    words are what stays resident.  The merge orders by (score, id),
+    With a :class:`PackedScanState` (pass ``code_bits``) each chunk is
+    scored straight from its words (``ops/packed_dots``); the packed words
+    are what stays resident.  The merge orders by (score, id),
     matching :func:`scan`.  With ``approx`` each block is selected
     approximately over the chunk's width, the tail as the JAX package's
     whole-chunk tail block (:func:`scan_chunks`), and the merge stays
@@ -343,13 +363,14 @@ def scan_chunked(state: ScanState | PackedScanState, qbits: torch.Tensor,
     packed = isinstance(state, PackedScanState)
     if packed and code_bits <= 0:
         raise ValueError("PackedScanState requires code_bits")
+    if packed and qbits.shape[1] != state.words.shape[1] * code_bits:
+        raise ValueError(f"query bits [{qbits.shape[1]}] do not match "
+                         f"{state.words.shape[1]} groups of {code_bits} bits")
+    rows = state.words if packed else state.bits
     n = state.popc.shape[0]
     if n <= chunk:
-        st = ScanState(unpack_bits_device(state.words, code_bits),
-                       state.popc) if packed else state
-        return scan(st, qbits, tombstones, limit, approx, anchor, margin,
-                    floor)
-    carry = scan_chunks(state.words if packed else state.bits, state.popc,
-                        tombstones, qbits, limit, chunk,
-                        code_bits if packed else 0, approx=approx)
+        return _scan(rows, state.popc, qbits, tombstones, limit, approx,
+                     anchor, margin, floor)
+    carry = scan_chunks(rows, state.popc, tombstones, qbits, limit, chunk,
+                        approx=approx)
     return _finish(*carry, qbits, n, anchor, margin, floor, carry[0].shape[1])

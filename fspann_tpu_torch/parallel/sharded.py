@@ -883,13 +883,12 @@ class ShardedIndex:
         """Packed-layout sharded scan: each shard runs the chunked
         running-top-L loop of the single-device scan
         (``hamming_scan.scan_chunks``) over its view of the words — slice
-        ``chunk`` packed rows, unpack on the device, bit product, 2-key
-        merge — so only [chunk, B] of unpacked scratch exists at a time on
+        ``chunk`` packed rows, their bit products straight from the words,
+        2-key merge — so only the [Q, chunk] products exist at a time on
         each device (the resident state is the 8×-smaller word matrix).
         Merge identical to the unpacked step."""
         rows = self.shard_rows
         shard_cap = self._shard_cap(probe_shards)
-        cb = self.bank.code_bits
         chunk = min(chunk, rows)
         k = min(limit, chunk)
 
@@ -905,7 +904,7 @@ class ShardedIndex:
                                        shard_cap)
                 return hamming_scan.scan_chunks(
                     self._shard(words, s), self._shard(popc, s), dead,
-                    qbits[dev][0], limit, chunk, cb, approx=approx)
+                    qbits[dev][0], limit, chunk, approx=approx)
 
             return self._scan_blocks(local_topl, qbits, limit, merge)
 
