@@ -19,7 +19,9 @@ window, and the sweep scores the columns of that span whose id does.
 
 On a CPU tensor :func:`code_hamming` runs :func:`code_hamming_plain` — that
 is the only reason it ever does.  On a CUDA tensor it launches the kernel or
-raises; nothing falls back.
+raises; nothing falls back.  Each call counts its candidate slots
+(``code_hamming.slots``) and those scored by a gather, the kernel's or the
+plain version's (``code_hamming.gather_slots``), under the open request.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import ctypes
 import torch
 
 from .._build import cuda_library
+from ..utils.profiler import count
 from .hamming import hamming
 
 MAX_C = 192     # words per point: the 6,144-bit codes of the 960-d config
@@ -216,11 +219,15 @@ def code_hamming(point_codes: torch.Tensor, qcodes: torch.Tensor,
     w])``, and INT32_MAX at pads.
     """
     _check(point_codes, qcodes, ids)
-    if ids.device.type == "cpu":
-        return code_hamming_plain(point_codes, qcodes, ids)
     (n, c), (q, r) = point_codes.shape, ids.shape
-    return _launch(choose_path(q, r, n, c, ascending), point_codes, qcodes,
-                   ids)
+    cpu = ids.device.type == "cpu"
+    path = "gather" if cpu else choose_path(q, r, n, c, ascending)
+    count("code_hamming.slots", q * r)
+    if path == "gather":
+        count("code_hamming.gather_slots", q * r)
+    if cpu:
+        return code_hamming_plain(point_codes, qcodes, ids)
+    return _launch(path, point_codes, qcodes, ids)
 
 
 def code_hamming_gather(point_codes: torch.Tensor, qcodes: torch.Tensor,

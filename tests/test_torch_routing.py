@@ -121,9 +121,11 @@ def test_greedy_interval_matches_jax(rng, max_probes):
     np.testing.assert_array_equal(thi.numpy(), np.asarray(hi))
 
 
-# (m, lam, block, wide, probes): W = 1, 3 (λ = 3) and 4 words per group
+# (m, lam, block, wide, probes): W = 1, 3 (λ = 3), 4 and 2 words per group,
+# the last the 10M probe configuration's groups (48-bit narrow keys, 8
+# probes of 128-row blocks)
 CASES = [(10, 2, 16, False, 3), (30, 3, 8, False, 1), (30, 3, 8, True, 4),
-         (64, 2, 32, False, 8), (64, 2, 32, True, 2)]
+         (64, 2, 32, False, 8), (64, 2, 32, True, 2), (24, 2, 128, False, 8)]
 
 
 @pytest.mark.parametrize("m,lam,block,wide,probes", CASES)
